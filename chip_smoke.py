@@ -8,7 +8,8 @@ CUDA toolkit (nvcc) and PyTorch built for CUDA. JAX is not needed. Phases,
 each of which fails the run on any mismatch:
 
   1. device facts (nvidia-smi name and power limit, torch's device name);
-  2. build of the stage-1 CUDA kernel from csrc/ (timed, with ptxas report);
+  2. build of the CUDA kernels from csrc/, one nvcc per source, all started
+     together (timed, with ptxas report);
   3. kernel vs its plain PyTorch version, bitwise, for all six enzymes,
      max_mismatch 0..5, 128 and 2048 guide rows, a ragged N and padding;
   4. 20 Mbp repeat-rich genome: the port's discover CLI output is
@@ -22,7 +23,14 @@ each of which fails the run on any mismatch:
      the CLI's own guides against the numpy oracle on a 2M-target slice, a
      32-guide byte check against the numpy CLI, stage-1 launches > 0, and
      stage-1 kernel vs plain, bitwise and timed, at the main path's shape
-     (the CLI's 2048-row guide block x the whole database) and at 1024 rows.
+     (the CLI's 2048-row guide block x the whole database) and at 1024 rows;
+  6. stage-1 variants at the experiment tool's size: the port's tool
+     (`flashfry_tpu_torch.tools.experiment_stage1`) runs its default
+     variants on (32, 2^23) codes x 1024 guides and the (128, 2^23) one-hot
+     (launches of every variant kernel > 0); then each kernel and mode (K1,
+     X2, X3, X5 at two tiles, X6 in three modes) bitwise against its plain
+     version and timed beside it, X6 dot at 512 guides, and X6 copy's
+     bytes/s.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
@@ -44,6 +52,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -58,8 +67,11 @@ from flashfry_tpu_torch.ops import _build  # noqa: E402
 from flashfry_tpu_torch.ops.scan import (  # noqa: E402
     PAD_CODE, SLAB, DeviceScanner, expand_codes, guide_block_rows,
     guide_onehot_matrix, split_words)
+from flashfry_tpu_torch.ops import stage1_variants as sv  # noqa: E402
 from flashfry_tpu_torch.ops.scan_kernel import (  # noqa: E402
     guide_block_layout, stage1, stage1_reference)
+from flashfry_tpu_torch.tools import experiment_stage1 as tool  # noqa: E402
+from flashfry_tpu_torch.tools.experiment_stage1 import max_abs_err  # noqa: E402
 
 ENZYMES = ("spcas9ngg", "spcas9", "spcas9nag", "spcas919", "spcas9ngg19",
            "cpf1")
@@ -67,6 +79,17 @@ WORK = os.path.join(ROOT, "_smoke_work")
 DEVICE = "cuda"
 SMALL_MB, MAIN_MB, MAIN_GUIDES = 20, 400, 1000
 STAGE1_TPU = "flashfry_tpu/ops/scan_kernel.py:79"
+VARIANT_CHUNK, VARIANT_GUIDES = tool.CHUNK, tool.GUIDES  # the tool's own size
+KERNEL_LIBS = ("stage1", "stage1_variants")
+VARIANTS_SRC = "flashfry_tpu_torch/csrc/stage1_variants.cu"
+# variant kernel -> (the TPU kernel it replaces, the tool's keys it runs;
+# the first key's times are the kernel's in the kernels line)
+VARIANT_KERNELS = {
+    "v3_int16": ("tools/experiment_stage1.py:74", ("3",)),
+    "v4_concat_onehot": ("tools/experiment_stage1.py:96", ("4",)),
+    "v5_tile": ("tools/experiment_stage1.py:143", ("5a", "5b")),
+    "expanded": ("tools/experiment_stage1.py:164", ("e_full", "e_dot", "e_copy")),
+}
 
 
 def say(*a) -> None:
@@ -78,14 +101,7 @@ def cuda_ms(fn, reps: int) -> float:
     reps calls after one warm-up call."""
     fn()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
+    return tool.seconds_per_call(fn, torch.device(DEVICE), reps) * 1e3
 
 
 def write_fasta(path: str, name: str, codes: np.ndarray, width: int = 100) -> None:
@@ -160,15 +176,6 @@ def index_genome(genome_mb: int, seed: int, tag: str):
     return db_path, t_gen, t_index
 
 
-def max_abs_err(got: torch.Tensor, want: torch.Tensor, what: str) -> int:
-    """Largest |kernel - plain| over the hit bytes; raises unless 0."""
-    err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
-    if err:
-        raise AssertionError("stage1 kernel != plain (%s): %d of %d bytes differ"
-                             % (what, int((got != want).sum()), got.numel()))
-    return err
-
-
 def main_path_inputs():
     """Phase 5's database and guides: the 400 Mbp genome indexed by the
     port's CLI, MAIN_GUIDES position-sampled guides written as a FASTA, and
@@ -201,17 +208,26 @@ def phase_device() -> dict:
     return {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}
 
 
-def phase_build() -> None:
-    fresh = not _build.library_path("stage1").exists()
+def timed_build(name: str):
     t = time.perf_counter()
-    path = _build.build("stage1")
+    return _build.build(name), time.perf_counter() - t
+
+
+def phase_build() -> None:
+    fresh = {n: not _build.library_path(n).exists() for n in KERNEL_LIBS}
+    t = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_LIBS)) as ex:  # one nvcc per source
+        built = {n: f.result() for n, f in
+                 [(n, ex.submit(timed_build, n)) for n in KERNEL_LIBS]}
     _build.stage1_library()
-    say("phase 2 build: %s in %.2fs (%s)"
-        % (os.path.relpath(path, ROOT), time.perf_counter() - t,
-           "compiled" if fresh else "cached"))
-    for line in open(str(path) + ".log").read().splitlines():
-        if "registers" in line or "spill" in line:
-            say("  ptxas: " + line.strip())
+    _build.stage1_variants_library()
+    say("phase 2 build: %d libraries in %.2fs" % (len(built), time.perf_counter() - t))
+    for name, (path, secs) in built.items():
+        say("  %s in %.2fs (%s)" % (os.path.relpath(path, ROOT), secs,
+                                    "compiled" if fresh[name] else "cached"))
+        for line in open(str(path) + ".log").read().splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                say("  ptxas: " + line.strip())
 
 
 def phase_kernel_vs_plain() -> int:
@@ -247,7 +263,7 @@ def phase_kernel_vs_plain() -> int:
                 thr = max(n_act - mm, 1)
                 got = stage1(codes, gi8, thr)
                 want = stage1_reference(codes, gi8, thr)
-                err = max(err, max_abs_err(got, want, "%s G=%d mm=%d"
+                err = max(err, max_abs_err(got, want, "stage1 %s G=%d mm=%d"
                                            % (enzyme, G, mm)))
                 if bool(got[n:].any()):
                     raise AssertionError("a padding column hit (%s)" % enzyme)
@@ -344,7 +360,8 @@ def phase_main_path() -> dict:
         gi8 = guide_block_layout(torch.from_numpy(oh).to(DEVICE), L)
         got = stage1(scanner.codes, gi8, thr)
         ref = stage1_reference(scanner.codes, gi8, thr)
-        err = max(err, max_abs_err(got, ref, "%d rows x the database" % g_rows))
+        err = max(err, max_abs_err(got, ref, "stage1 %d rows x the database"
+                                   % g_rows))
         # in turns: plain, kernel, kernel, plain
         p1 = cuda_ms(lambda: stage1_reference(scanner.codes, gi8, thr), 3)
         k1 = cuda_ms(lambda: stage1(scanner.codes, gi8, thr), 10)
@@ -361,6 +378,63 @@ def phase_main_path() -> dict:
             "source": "flashfry_tpu_torch/csrc/stage1.cu",
             "replaces": STAGE1_TPU, "launches": launches,
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+
+
+def phase_variants() -> list:
+    """Phase 6: the port's experiment tool at its own size, then each
+    kernel against its plain version. Returns the kernels-line entries of
+    X2, X3, X5 and X6."""
+    for k in sv.KERNELS:
+        k.launches = 0
+    t = time.perf_counter()
+    inp, results = tool.run(device=DEVICE, chunk=VARIANT_CHUNK, G=VARIANT_GUIDES)
+    launches = {k.__name__: k.launches for k in sv.KERNELS}
+    say("phase 6 stage-1 variants: the tool ran %d lines in %.1fs; kernel "
+        "launches %s" % (len(results), time.perf_counter() - t, json.dumps(launches)))
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError("the tool launched no %s kernel" % name)
+
+    keys = [r["key"] for r in results if "key" in r]
+    n, G = inp.codes.shape[1], inp.guide_i8.shape[0]
+    timed = {}
+    for v in tool.variants(inp, keys):
+        err = max_abs_err(v.kernel(), v.plain(), v.name)
+        # in turns: plain, kernel, kernel, plain
+        p1 = cuda_ms(v.plain, 3)
+        k1 = cuda_ms(v.kernel, 10)
+        k2 = cuda_ms(v.kernel, 10)
+        p2 = cuda_ms(v.plain, 3)
+        timed[v.key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                        "max_abs_err": err}
+        say("  %-24s kernel %.3f ms (%.3f, %.3f), plain %.3f ms (%.3f, %.3f), "
+            "%.3g cmp/s, bitwise equal" % (v.name, timed[v.key]["ms"], k1, k2,
+                                           timed[v.key]["plain_ms"], p1, p2,
+                                           v.work / timed[v.key]["ms"] * 1e3))
+
+    # dot's guide loop has to scale with G (nvcc kept it); copy's bytes/s
+    oh, thr = inp.expanded_onehot(), inp.thr
+    half = inp.guide_i8[:G // 2].contiguous()
+    max_abs_err(sv.expanded(oh, half, thr, "dot"),
+                sv.expanded_reference(oh, half, thr, "dot"), "dot, G/2")
+    dot_half = cuda_ms(lambda: sv.expanded(oh, half, thr, "dot"), 10)
+    copy_bytes = (oh.numel() + n) / (timed["e_copy"]["ms"] / 1e3)
+    say("  expanded dot at G=%d: %.3f ms vs %.3f ms at G=%d (ratio %.3f); "
+        "expanded copy %.1f GB/s (%d bytes read + %d written)"
+        % (G // 2, dot_half, timed["e_dot"]["ms"], G,
+           timed["e_dot"]["ms"] / dot_half, copy_bytes / 1e9, oh.numel(), n))
+
+    entries = []
+    for name, (replaces, ks) in VARIANT_KERNELS.items():
+        e = {"name": name, "route": "cuda", "source": VARIANTS_SRC,
+             "replaces": replaces, "launches": launches[name],
+             "max_abs_err": max(timed[k]["max_abs_err"] for k in ks),
+             "ms": timed[ks[0]]["ms"], "plain_ms": timed[ks[0]]["plain_ms"]}
+        if len(ks) > 1:
+            e["variants"] = {k: {"ms": timed[k]["ms"], "plain_ms": timed[k]["plain_ms"]}
+                             for k in ks}
+        entries.append(e)
+    return entries
 
 
 def profile_main_path(reps: int = 3, trace_dir: str = "") -> None:
@@ -446,11 +520,12 @@ def main() -> int:
         err = phase_kernel_vs_plain()
         phase_byte_identity()
         kernel = phase_main_path()
+        variant_kernels = phase_variants()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
     say("total %.1fs" % (time.perf_counter() - t0))
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel] + variant_kernels}))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

@@ -84,3 +84,17 @@ def stage1_library() -> ctypes.CDLL:
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+def stage1_variants_library() -> ctypes.CDLL:
+    """csrc/stage1_variants.cu: the experiment tool's X2, X3, X5, X6."""
+    lib = load("stage1_variants")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn, extra in ((lib.ff_v3_int16_launch, []),
+                      (lib.ff_v4_concat_onehot_launch, []),
+                      (lib.ff_v5_tile_launch, [i]),
+                      (lib.ff_expanded_launch, [i])):
+        # (src, n, guides, g_rows, thr, [t_tile | mode], out, stream)
+        fn.argtypes = [p, ll, p, i, i, *extra, p, p]
+        fn.restype = ctypes.c_int
+    return lib

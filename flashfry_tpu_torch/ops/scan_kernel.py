@@ -10,6 +10,8 @@ max_mm, 1)`.
 `stage1_reference`; a CUDA tensor launches the hand-written kernel in
 `csrc/stage1.cu` (its header says what bounds it on Hopper and how the
 design answers that) or raises. `stage1.launches` counts kernel launches.
+`matches_reference`, `check_inputs` and `launch` serve the stage-1
+variants of ops/stage1_variants.py as well.
 """
 
 from __future__ import annotations
@@ -18,8 +20,6 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
-
-from flashfry_tpu.ops.scan import PAD_CODE  # padding-column code, never hits
 
 CODE_ROWS = 32          # plane-major code rows (L <= 24, padded to 32)
 OH_ROWS = 4 * CODE_ROWS  # one-hot width in block layout (column b*32+i)
@@ -45,45 +45,86 @@ def codes_onehot(codes_T: torch.Tensor) -> torch.Tensor:
     return torch.cat([codes_T == b for b in range(4)], dim=1).to(torch.int8)
 
 
-def stage1_reference(codes: torch.Tensor, guide_i8: torch.Tensor,
-                     thr: int) -> torch.Tensor:
-    """Plain PyTorch stage 1 on any device: (32, N) int8 codes, (G, 128)
-    int8 guides -> (N,) bool. Chunked over targets so the (T, G) int32
-    match counts never exceed _REF_ELEMS elements."""
-    n = codes.shape[1]
+def matches_reference(src: torch.Tensor, guide_i8: torch.Tensor, onehot_T,
+                      epilogue, dtype: torch.dtype) -> torch.Tensor:
+    """(N,) dtype: epilogue of the (T, G) int32 match counts
+    <onehot(t), guide g> of each chunk of src's target columns, on any
+    device. onehot_T turns a (T, rows) slice of src into (T, 128) int8.
+    Chunked over targets so the counts never exceed _REF_ELEMS elements."""
+    n = src.shape[1]
     G = guide_i8.shape[0]
-    out = torch.empty(n, dtype=torch.bool, device=codes.device)
+    out = torch.empty(n, dtype=dtype, device=src.device)
     chunk = max(32, (_REF_ELEMS // max(G, 1)) // 32 * 32)
     guides_T = guide_i8.t()                                   # (128, G)
     for lo in range(0, n, chunk):
-        c = codes[:, lo:lo + chunk].t()                       # (T, 32)
-        t = c.shape[0]
-        pad = -t % 32  # _int_mm wants > 16 rows: pad with PAD_CODE targets
+        oh = onehot_T(src[:, lo:lo + chunk].t())              # (T, 128)
+        t = oh.shape[0]
+        pad = -t % 32  # _int_mm wants > 16 rows: pad with all-zero rows
         if pad:
-            c = F.pad(c, (0, 0, 0, pad), value=PAD_CODE)
-        matches = torch._int_mm(codes_onehot(c), guides_T)    # (T, G) int32
-        out[lo:lo + t] = matches[:t].amax(dim=1) >= thr
+            oh = F.pad(oh, (0, 0, 0, pad))
+        matches = torch._int_mm(oh.contiguous(), guides_T)    # (T, G) int32
+        out[lo:lo + t] = epilogue(matches[:t])
     return out
 
 
-def _check(codes: torch.Tensor, guide_i8: torch.Tensor) -> None:
-    if codes.dtype != torch.int8 or guide_i8.dtype != torch.int8:
-        raise TypeError("stage1 takes int8 codes and guides, got %s and %s"
-                        % (codes.dtype, guide_i8.dtype))
-    if codes.dim() != 2 or codes.shape[0] != CODE_ROWS:
-        raise ValueError("codes must be (%d, N), got %s"
-                         % (CODE_ROWS, tuple(codes.shape)))
+def stage1_reference(codes: torch.Tensor, guide_i8: torch.Tensor,
+                     thr: int) -> torch.Tensor:
+    """Plain PyTorch stage 1 on any device: (32, N) int8 codes, (G, 128)
+    int8 guides -> (N,) bool."""
+    return matches_reference(codes, guide_i8, codes_onehot,
+                             lambda m: m.amax(dim=1) >= thr, torch.bool)
+
+
+def check_inputs(src: torch.Tensor, guide_i8: torch.Tensor, what: str,
+                 rows: int = CODE_ROWS) -> None:
+    """Raise on what a stage-1 kernel does not take: src must be (rows, N)
+    int8, the guides (1..MAX_GUIDE_ROWS, 128) int8, both contiguous, on one
+    device, and that device the CPU or a CUDA card."""
+    if src.dtype != torch.int8 or guide_i8.dtype != torch.int8:
+        raise TypeError("%s takes int8 inputs and guides, got %s and %s"
+                        % (what, src.dtype, guide_i8.dtype))
+    if src.dim() != 2 or src.shape[0] != rows:
+        raise ValueError("%s input must be (%d, N), got %s"
+                         % (what, rows, tuple(src.shape)))
     if guide_i8.dim() != 2 or guide_i8.shape[1] != OH_ROWS:
         raise ValueError("guides must be (G, %d), got %s"
                          % (OH_ROWS, tuple(guide_i8.shape)))
     if not 1 <= guide_i8.shape[0] <= MAX_GUIDE_ROWS:
         raise ValueError("guide rows must be in [1, %d], got %d"
                          % (MAX_GUIDE_ROWS, guide_i8.shape[0]))
-    if not (codes.is_contiguous() and guide_i8.is_contiguous()):
-        raise ValueError("stage1 takes contiguous codes and guides")
-    if codes.device != guide_i8.device:
-        raise ValueError("codes on %s but guides on %s"
-                         % (codes.device, guide_i8.device))
+    if not (src.is_contiguous() and guide_i8.is_contiguous()):
+        raise ValueError("%s takes contiguous inputs and guides" % what)
+    if src.device != guide_i8.device:
+        raise ValueError("input on %s but guides on %s"
+                         % (src.device, guide_i8.device))
+    if src.device.type not in ("cpu", "cuda"):
+        raise ValueError("%s runs on cpu or cuda, not %s" % (what, src.device))
+
+
+def launch(wrapper, fn, src: torch.Tensor, guide_i8: torch.Tensor, thr: int,
+           *extra, check_guides: bool = True) -> torch.Tensor:
+    """Run the ctypes launcher fn(src, n, guides, g_rows, thr, *extra, out,
+    stream) on the current stream into a new (N,) int8 output, and count
+    the launch in wrapper.launches. Raises on guides that are not 16-byte
+    aligned or (with check_guides) not 0/1, and on a failed launch."""
+    if guide_i8.data_ptr() % 16:
+        raise ValueError("guides must be 16-byte aligned")
+    if check_guides and bool(((guide_i8 != 0) & (guide_i8 != 1)).any()):
+        raise ValueError("guide one-hot must hold only 0 and 1")
+    n = src.shape[1]
+    out = torch.empty(n, dtype=torch.int8, device=src.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = fn(ctypes.c_void_p(src.data_ptr()), n,
+                 ctypes.c_void_p(guide_i8.data_ptr()), guide_i8.shape[0],
+                 int(thr), *extra, ctypes.c_void_p(out.data_ptr()),
+                 ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError("%s failed: cudaError %d" % (fn.__name__, err))
+    wrapper.launches += 1
+    return out
 
 
 def stage1(codes: torch.Tensor, guide_i8: torch.Tensor, thr: int) -> torch.Tensor:
@@ -92,31 +133,12 @@ def stage1(codes: torch.Tensor, guide_i8: torch.Tensor, thr: int) -> torch.Tenso
     CPU tensors run stage1_reference. CUDA tensors launch the kernel of
     csrc/stage1.cu on the current stream (and count it in
     stage1.launches); anything the kernel does not take raises."""
-    _check(codes, guide_i8)
+    check_inputs(codes, guide_i8, "stage1")
     if codes.device.type == "cpu":
         return stage1_reference(codes, guide_i8, thr)
-    if codes.device.type != "cuda":
-        raise ValueError("stage1 runs on cpu or cuda, not %s" % codes.device)
-    if guide_i8.data_ptr() % 16:
-        raise ValueError("guides must be 16-byte aligned")
-    if bool(((guide_i8 != 0) & (guide_i8 != 1)).any()):
-        raise ValueError("guide one-hot must hold only 0 and 1")
     from ._build import stage1_library
-    lib = stage1_library()
-    n = codes.shape[1]
-    out = torch.empty(n, dtype=torch.int8, device=codes.device)
-    if n == 0:
-        return out.view(torch.bool)
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream(codes.device).cuda_stream
-        err = lib.ff_stage1_launch(
-            ctypes.c_void_p(codes.data_ptr()), n,
-            ctypes.c_void_p(guide_i8.data_ptr()), guide_i8.shape[0], int(thr),
-            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError("stage1 kernel launch failed: cudaError %d" % err)
-    stage1.launches += 1
-    return out.view(torch.bool)
+    return launch(stage1, stage1_library().ff_stage1_launch, codes, guide_i8,
+                  thr).view(torch.bool)
 
 
 stage1.launches = 0

@@ -24,7 +24,9 @@ from flashfry_tpu.standards import Cas9NGGParameterPack, Cpf1ParameterPack
 from flashfry_tpu_torch import cli
 from flashfry_tpu_torch.engine import pruned_comparisons_device
 from flashfry_tpu_torch.ops import scan_kernel as tk
+from flashfry_tpu_torch.ops import stage1_variants as sv
 from flashfry_tpu_torch.ops.scan import DeviceScanner
+from flashfry_tpu_torch.tools import experiment_stage1 as tool
 
 pytestmark = pytest.mark.gpu
 
@@ -65,6 +67,56 @@ def test_stage1_kernel_equals_plain(cuda):
             assert torch.equal(got, want), (G, mm)
             assert not bool(got[n_real:].any())
     assert tk.stage1.launches == before + 12
+
+
+def test_stage1_variant_kernels_equal_plain(cuda):
+    """X2, X3, X5 (three tiles) and X6 (three modes) on a ragged width with a
+    PAD_CODE tail, at 128 and 2048 guide rows, mm 0..5: bitwise equal."""
+    rng = np.random.default_rng(9)
+    n_real, n = 150_001, 153_333
+    targets = rng.integers(0, 1 << 46, size=n_real, dtype=np.uint64)
+    codes = torch.from_numpy(plane_codes(targets, 23, n)).to(cuda)
+    onehot = sv.expand_onehot(codes, 23)
+    before = [k.launches for k in sv.KERNELS]
+    hits = 0
+    for G in (128, 2048):
+        guides = targets[rng.integers(0, n_real, size=G - 20)].copy()
+        for j in range(guides.shape[0]):
+            for pos in rng.integers(0, 23, size=j % 7):
+                guides[j] ^= np.uint64(int(rng.integers(1, 4))) << np.uint64(2 * int(pos))
+        oh, _, _ = guide_onehot_matrix(guides, Cas9NGGParameterPack, pad_to=G)
+        goh = torch.from_numpy(oh).to(cuda)
+        gi8 = sv.interleaved_guides(goh, 23)
+        blk = tk.guide_block_layout(goh, 23)
+        for mm in range(6):
+            thr = 20 - mm
+            pairs = [(sv.v3_int16(codes, gi8, thr), sv.v3_int16_reference(codes, gi8, thr)),
+                     (sv.v4_concat_onehot(codes, blk, thr),
+                      sv.v4_concat_onehot_reference(codes, blk, thr)),
+                     (sv.expanded(onehot, gi8, thr, "full"),
+                      sv.expanded_reference(onehot, gi8, thr, "full"))]
+            want = sv.v5_tile_reference(codes, gi8, thr)
+            pairs += [(sv.v5_tile(codes, gi8, thr, t), want) for t in (1000, 2048, 8192)]
+            for got, ref in pairs:
+                torch.cuda.synchronize()
+                assert torch.equal(got, ref), (G, mm)
+                assert not bool(got[0, n_real:].any())
+            hits += int(pairs[0][0].sum())
+        for mode in ("dot", "copy"):
+            got = sv.expanded(onehot, gi8, 16, mode)
+            assert torch.equal(got, sv.expanded_reference(onehot, gi8, 16, mode)), (G, mode)
+    assert hits > 0
+    assert [k.launches - b for k, b in zip(sv.KERNELS, before)] == [12, 12, 36, 16]
+
+
+def test_experiment_tool_on_cuda(cuda):
+    """The port's tool at a small size: every default variant through its
+    kernel, held against its plain version inside run()."""
+    before = [k.launches for k in sv.KERNELS] + [tk.stage1.launches]
+    _inp, results = tool.run(device="cuda", chunk=1 << 16, G=256, reps=1)
+    assert [r["max_abs_err"] for r in results if "key" in r] == [0] * 8
+    after = [k.launches for k in sv.KERNELS] + [tk.stage1.launches]
+    assert all(a > b for a, b in zip(after, before))
 
 
 @pytest.mark.parametrize("pack", [Cas9NGGParameterPack, Cpf1ParameterPack],

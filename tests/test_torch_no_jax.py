@@ -1,8 +1,9 @@
 """The PyTorch port runs where JAX is not installed.
 
 A child process installs a meta-path hook that refuses every `jax` and
-`jaxlib` import, then imports the port, its CLI and chip_smoke.py and runs a
-small discover on the CPU through the port's CLI.
+`jaxlib` import, then imports the port, its CLI, its experiment tool and
+chip_smoke.py, and runs a small discover through the port's CLI and the
+tool, on the CPU.
 """
 
 import os
@@ -27,7 +28,8 @@ CHILD = textwrap.dedent("""
     import flashfry_tpu_torch
     import flashfry_tpu_torch.__main__
     from flashfry_tpu_torch import cli, device, engine
-    from flashfry_tpu_torch.ops import _build, scan, scan_kernel
+    from flashfry_tpu_torch.ops import _build, scan, scan_kernel, stage1_variants
+    from flashfry_tpu_torch.tools import experiment_stage1
 
     import numpy as np
     from flashfry_tpu.database import build_database_from_sites, save_database
@@ -47,6 +49,7 @@ CHILD = textwrap.dedent("""
                           "--output", os.path.join(d, "out"),
                           "--device", "cpu"])
         assert report["guides"] > 0 and os.path.getsize(os.path.join(d, "out"))
+    experiment_stage1.run(device="cpu", chunk=4096, G=64, reps=1)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
     assert not loaded, loaded
     print("NO_JAX_OK")
