@@ -12,10 +12,11 @@ each of which fails the run on any mismatch:
      together (timed, with ptxas report);
   3. kernel vs its plain PyTorch version, bitwise, for all six enzymes,
      max_mismatch 0..5, 128 and 2048 guide rows, a ragged N and padding;
-  4. 20 Mbp repeat-rich genome: the port's discover CLI output is
-     byte-identical to `python -m flashfry_tpu ... --backend numpy` at mm=3,
-     mm=4, with overflowing guides, and with enough guides for one
-     2048-row guide block;
+  4. 20 Mbp repeat-rich genome: the port's discover CLI output on the card
+     is byte-identical to the port's own `--backend numpy` CLI (the host
+     XOR/popcount scan, which the CPU tests hold byte for byte to
+     flashfry_tpu's numpy backend) at mm=3, mm=4, with overflowing guides,
+     and with enough guides for one 2048-row guide block;
   5. the main path at real size: a 400 Mbp repeat-rich genome (~48M
      targets), 1000 position-sampled guides (1059 guide sites, one
      2048-row block) at mm=4 through the port's discover CLI, phase
@@ -25,16 +26,25 @@ each of which fails the run on any mismatch:
      stage-1 kernel vs plain, bitwise and timed, at the main path's shape
      (the CLI's 2048-row guide block x the whole database) and at 1024 rows;
   6. stage-1 variants at the experiment tool's size: the port's tool
-     (`flashfry_tpu_torch.tools.experiment_stage1`) runs its default
-     variants on (32, 2^23) codes x 1024 guides and the (128, 2^23) one-hot
-     (launches of every variant kernel > 0); then each kernel and mode (K1,
-     X2, X3, X5 at two tiles, X6 in three modes) bitwise against its plain
-     version and timed beside it, X6 dot at 512 guides, and X6 copy's
-     bytes/s.
+     (`flashfry_tpu_torch.tools.experiment_stage1`) runs all twelve keys of
+     the JAX tool on (32, 2^23) codes x 1024 guides and the (128, 2^23)
+     one-hot (launches of every variant kernel > 0); then each kernel and
+     mode (K1 and its 512 super rows, X1, X2, X3, X4 and its 512 super rows,
+     X5 at two tiles, X6 in three modes) bitwise against its plain version
+     and timed beside it, X6 dot at 512 guides, and X6 copy's bytes/s.
+
+Beside each kernel's time the script computes its bound, the larger of its
+int8 operations (the one-hot product as the TPU kernel computes it, 2 x 128
+x G x N) over the H100's published 1,979 TOP/s and the bytes the function
+needs (each input read once, each output written once) over 3.35 TB/s, and
+times the library call: torch._int_mm of a pre-built (N, 128) one-hot
+(built before timing) by the guides, then the epilogue, in the plain
+version's column chunks; for X6 copy, whose output is one-hot row 0, a
+clone of that row.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
-exits 1 and prints no result.
+exits 1 and prints no result. It imports neither JAX nor flashfry_tpu.
 
 profile_main_path(), not run by main(), breaks the 400 Mbp discover CLI
 down further (repeat runs at mm 3/4/5, the plane build split, a
@@ -60,16 +70,16 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-import bench  # noqa: E402  (repeat-rich genome, position-sampled guides, oracle slice)
-from flashfry_tpu_torch import _numpy_compat  # noqa: E402,F401  (load_database)
 from flashfry_tpu_torch import cli, engine  # noqa: E402
+from flashfry_tpu_torch.bitcoding import BitEncoding  # noqa: E402
 from flashfry_tpu_torch.ops import _build  # noqa: E402
 from flashfry_tpu_torch.ops.scan import (  # noqa: E402
     PAD_CODE, SLAB, DeviceScanner, expand_codes, guide_block_rows,
     guide_onehot_matrix, split_words)
 from flashfry_tpu_torch.ops import stage1_variants as sv  # noqa: E402
 from flashfry_tpu_torch.ops.scan_kernel import (  # noqa: E402
-    guide_block_layout, stage1, stage1_reference)
+    _REF_ELEMS, OH_ROWS, codes_onehot, guide_block_layout, stage1,
+    stage1_reference)
 from flashfry_tpu_torch.tools import experiment_stage1 as tool  # noqa: E402
 from flashfry_tpu_torch.tools.experiment_stage1 import max_abs_err  # noqa: E402
 
@@ -85,11 +95,19 @@ VARIANTS_SRC = "flashfry_tpu_torch/csrc/stage1_variants.cu"
 # variant kernel -> (the TPU kernel it replaces, the tool's keys it runs;
 # the first key's times are the kernel's in the kernels line)
 VARIANT_KERNELS = {
+    "v1_gloop": ("tools/experiment_stage1.py:47", ("1",)),
     "v3_int16": ("tools/experiment_stage1.py:74", ("3",)),
     "v4_concat_onehot": ("tools/experiment_stage1.py:96", ("4",)),
+    "v6_bf16out": ("tools/experiment_stage1.py:118", ("bf", "g2bf")),
     "v5_tile": ("tools/experiment_stage1.py:143", ("5a", "5b")),
     "expanded": ("tools/experiment_stage1.py:164", ("e_full", "e_dot", "e_copy")),
 }
+# H100 SXM published dense peaks at 700 W: int8 tensor-core operations/s and
+# device-memory bytes/s
+PEAK_INT8_OPS, PEAK_BYTES = 1.979e15, 3.35e12
+ORACLE_SLICE = 2_000_000  # targets cross-checked against the numpy oracle
+# a kernel's numbers in the kernels line, per tool key
+TIMED_FIELDS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def say(*a) -> None:
@@ -102,6 +120,57 @@ def cuda_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
     return tool.seconds_per_call(fn, torch.device(DEVICE), reps) * 1e3
+
+
+def bound(read: int, written: int, ops: int = 0) -> dict:
+    """The least time the card could take: the larger of ops int8
+    operations over the int8 peak and the bytes the function must read and
+    write, each once, over the memory rate."""
+    ops_ms = ops / PEAK_INT8_OPS * 1e3
+    bytes_ms = (read + written) / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def product_bound(src: torch.Tensor, g_rows: int) -> dict:
+    """bound of one byte per column of src from its one-hot product with
+    g_rows guide rows, as the TPU kernel computes it: 2 x 128 x g_rows x N
+    int8 operations; src and the guides read, N bytes written."""
+    n = src.shape[1]
+    return bound(src.numel() + g_rows * OH_ROWS, n, 2 * OH_ROWS * g_rows * n)
+
+
+def prebuilt_onehot(src: torch.Tensor, onehot_T) -> torch.Tensor:
+    """(N_pad, 128) int8 one-hot of src's columns, built slab by slab before
+    any library call is timed; N_pad rounds N up to 32 with zero rows, as
+    torch._int_mm on the card wants."""
+    n = src.shape[1]
+    oh = torch.zeros((-(-n // 32) * 32, OH_ROWS), dtype=torch.int8, device=src.device)
+    for lo in range(0, n, SLAB):
+        part = onehot_T(src[:, lo:lo + SLAB].t())
+        oh[lo:lo + part.shape[0]] = part
+    return oh
+
+
+def library_ms(oh: torch.Tensor, guides: torch.Tensor, epilogue, want: torch.Tensor,
+               reps: int = 3) -> float:
+    """One library call of the same function: torch._int_mm of the
+    pre-built one-hot by the (128, G) guides, then the epilogue, in the
+    plain version's column chunks. Its bytes must equal want's (the plain
+    version's output)."""
+    G = guides.shape[0]
+    chunk = max(32, (_REF_ELEMS // G) // 32 * 32)
+    guides_T = guides.t()
+    out = torch.empty(oh.shape[0], dtype=torch.int8, device=oh.device)
+
+    def call():
+        for lo in range(0, oh.shape[0], chunk):
+            m = torch._int_mm(oh[lo:lo + chunk], guides_T)
+            out[lo:lo + m.shape[0]] = epilogue(m)
+
+    ms = cuda_ms(call, reps)
+    max_abs_err(out[:want.numel()], want.reshape(-1).to(torch.int8), "library call")
+    return ms
 
 
 def write_fasta(path: str, name: str, codes: np.ndarray, width: int = 100) -> None:
@@ -126,31 +195,121 @@ def write_guides(path: str, db, longs: np.ndarray) -> None:
         fh.write("".join(">g%d\n%s\n" % (i, s) for i, s in enumerate(seqs)))
 
 
-# flashfry_tpu's own CLI, with the numpy >= 2.1 shim its database loader needs
-REFERENCE_CLI = ("import sys, flashfry_tpu_torch._numpy_compat, "
-                 "flashfry_tpu.cli as c; sys.exit(c.main(sys.argv[1:]))")
+# bench.py's repeat-rich genome, position-sampled guides, scan collector and
+# numpy oracle slice, kept here so the smoke needs nothing outside the port
+
+def synthesize_genome(genome_mb: int, rng) -> np.ndarray:
+    """Synthetic genome with an hg38-like repeat landscape (int8 codes).
+
+    A uniform-random genome gives every guide ~135 mm<=4 off-targets and the
+    2000-position overflow cap never trips; real hg38 is ~50% repetitive and
+    FlashFry's 65/109 s baselines were paid against guides with thousands of
+    OTs and live overflow (reference crispr/CRISPRSiteOT.scala:41-62). On a
+    uniform base genome we overlay:
+
+      * ~5% covered by repeat families — unit 300-5000 bp, copy number
+        log-uniform 10-1000, every copy independently mutated at 1.5%/base,
+        so sibling copies sit 0-5+ mismatches apart within any 23-mer window
+        (SINE/LINE-like diverged families -> a heavy mm<=4 OT-count tail);
+      * 3 high-copy "Alu-like" families — unit 300 bp, thousands of copies,
+        20% of copies exact — guides landing in them see >2000 OT genomic
+        positions (exact copies stack positions on one target, the database
+        keeps up to 32767 per target) and OVERFLOW, exercising the cap
+        machinery end-to-end.
+    """
+    n = genome_mb * 1_000_000
+    genome = rng.integers(0, 4, size=n, dtype=np.int8)
+
+    def place(unit: np.ndarray, copies: int, exact_frac: float) -> int:
+        m = unit.shape[0]
+        pos = rng.integers(0, n - m, size=copies)
+        exact = rng.random(copies) < exact_frac
+        for p, ex in zip(pos.tolist(), exact.tolist()):
+            c = unit
+            if not ex:
+                c = unit.copy()
+                nm = rng.binomial(m, 0.015)
+                if nm:
+                    s = rng.integers(0, m, size=nm)
+                    c[s] = (c[s] + rng.integers(1, 4, size=nm)) % 4
+            genome[p:p + m] = c
+        return m * copies
+
+    placed = 0
+    for _ in range(3):
+        unit = rng.integers(0, 4, size=300, dtype=np.int8)
+        copies = max(2500, int(rng.integers(5000, 20001) * genome_mb / 3000))
+        placed += place(unit, copies, 0.2)
+    target = int(0.05 * n)
+    while placed < target:
+        m = int(rng.integers(300, 5001))
+        copies = int(np.exp(rng.uniform(np.log(10), np.log(1000))))
+        unit = rng.integers(0, 4, size=m, dtype=np.int8)
+        placed += place(unit, copies, 0.0)
+    say("  repeat overlay: %.1f%% of genome placed as repeat copies"
+        % (100.0 * placed / n))
+    return genome
 
 
-def numpy_cli(args) -> None:
-    """flashfry_tpu's own CLI, numpy backend, in a child process."""
-    env = {k: v for k, v in os.environ.items() if k != "FLASHFRY_TPU_PLATFORM"}
-    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-c", REFERENCE_CLI, *args,
-                           "--backend", "numpy"],
-                          cwd=ROOT, env=env, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("numpy CLI failed (exit %d):\n%s"
-                           % (proc.returncode, proc.stderr[-4000:]))
+def sample_guides(db, n_guides: int, rng) -> np.ndarray:
+    """Sample guide sequences BY GENOMIC POSITION: a target is drawn with
+    probability proportional to its genomic occurrence count, as the
+    paper's sweep draws real genomic guides (run_timing_collection.py).
+    Repeat-family guides therefore appear at their genomic frequency —
+    including the heavy-OT-tail members that overflow the 2000-position
+    cap. Returns n_guides DISTINCT target longs."""
+    total = int(db.pos_offsets[-1])
+    offs = np.asarray(db.pos_offsets)
+    idx = np.zeros(0, dtype=np.int64)
+    while idx.size < n_guides:
+        ks = rng.integers(0, total, size=2 * n_guides)
+        cand = np.searchsorted(offs, ks, side="right") - 1
+        idx = np.unique(np.concatenate([idx, cand]))
+    # unique() sorts; shuffle deterministically then trim so the selection
+    # is not biased toward low target indices
+    rng.shuffle(idx)
+    return db.targets[np.sort(idx[:n_guides])]
+
+
+def collect_hits(scanner, guide_longs, max_mm):
+    """Run one full scan; returns (t_idx, g_idx, mm) concatenated arrays."""
+    ts, gs, ms = [], [], []
+    for t, g, m in scanner.scan(guide_longs, max_mm):
+        ts.append(np.asarray(t)); gs.append(np.asarray(g)); ms.append(np.asarray(m))
+    if not ts:
+        z = np.zeros(0, np.int64)
+        return z, z, z.astype(np.int8)
+    return np.concatenate(ts), np.concatenate(gs), np.concatenate(ms)
+
+
+def oracle_slice_check(db, guide_longs, max_mm, t_idx, g_idx, mm):
+    """Exact numpy oracle over a fixed 2M-target slice: the device scan's
+    hits restricted to the slice must match exactly (ids and mm counts)."""
+    n = db.num_targets
+    lo = min(n // 2, max(0, n - ORACLE_SLICE))
+    hi = min(n, lo + ORACLE_SLICE)
+    enc = BitEncoding(db.pack)
+    mm_o = enc.mismatches_cross(db.targets[lo:hi], guide_longs)  # (T, G)
+    to, go = np.nonzero(mm_o <= max_mm)
+    sel = (t_idx >= lo) & (t_idx < hi)
+    got = np.stack([t_idx[sel] - lo, g_idx[sel], mm[sel].astype(np.int64)])
+    want = np.stack([to, go, mm_o[to, go].astype(np.int64)])
+    got = got[:, np.lexsort(got[::-1])]
+    want = want[:, np.lexsort(want[::-1])]
+    assert got.shape == want.shape and (got == want).all(), \
+        "device scan diverges from numpy oracle on slice [%d, %d)" % (lo, hi)
+    return int(to.size)
 
 
 def byte_check(db_path: str, fasta: str, tag: str, extra=()) -> dict:
-    """Port CLI on the card vs the numpy CLI: the output files must be equal."""
+    """Port CLI on the card vs the port's numpy CLI: the output files must be
+    equal."""
     base = ["discover", "--fasta", fasta, "--database", db_path,
             "--positionOutput", *extra]
     mine = os.path.join(WORK, tag + ".torch.out")
     ref = os.path.join(WORK, tag + ".numpy.out")
     report = cli.run(base + ["--output", mine, "--device", DEVICE])
-    numpy_cli(base + ["--output", ref])
+    cli.run(base + ["--output", ref, "--backend", "numpy"])
     if not filecmp.cmp(mine, ref, shallow=False):
         raise AssertionError("%s: port output differs from the numpy CLI" % tag)
     say("  %s: byte-identical, %d bytes, %d guides (%d-row guide block), "
@@ -163,7 +322,7 @@ def byte_check(db_path: str, fasta: str, tag: str, extra=()) -> dict:
 def index_genome(genome_mb: int, seed: int, tag: str):
     """Repeat-rich synthetic genome -> FASTA -> the port's index CLI."""
     t = time.perf_counter()
-    codes = bench.synthesize_genome(genome_mb, np.random.default_rng(seed))
+    codes = synthesize_genome(genome_mb, np.random.default_rng(seed))
     fa = os.path.join(WORK, tag + ".fa")
     write_fasta(fa, "chrS", codes)
     del codes
@@ -183,7 +342,7 @@ def main_path_inputs():
     its order: stable by start)."""
     db_path, t_gen, t_index = index_genome(MAIN_MB, 2024, "g400")
     db = cli.load_database(db_path)
-    longs = bench.sample_guides(db, MAIN_GUIDES, np.random.default_rng(7))
+    longs = sample_guides(db, MAIN_GUIDES, np.random.default_rng(7))
     fasta = os.path.join(WORK, "g400_guides.fa")
     write_guides(fasta, db, longs)
     gsites = cli.find_target_sites(cli.iterate_fasta(fasta), db.pack)
@@ -283,7 +442,7 @@ def phase_byte_identity() -> None:
     say("phase 4 byte identity: %d Mbp, %d targets (genome %.1fs, index %.1fs)"
         % (SMALL_MB, db.num_targets, t_gen, t_index))
     fasta = os.path.join(WORK, "g20_guides.fa")
-    write_guides(fasta, db, bench.sample_guides(db, 200, np.random.default_rng(3)))
+    write_guides(fasta, db, sample_guides(db, 200, np.random.default_rng(3)))
     byte_check(db_path, fasta, "g20_mm3", ("--maxMismatch", "3"))
     byte_check(db_path, fasta, "g20_mm4", ("--maxMismatch", "4"))
     r = byte_check(db_path, fasta, "g20_mm4_cap5",
@@ -292,7 +451,7 @@ def phase_byte_identity() -> None:
         raise AssertionError("no guide overflowed --maximumOffTargets 5")
     # enough guides for one 2048-row guide block, the main path's shape
     fasta = os.path.join(WORK, "g20_guides_2048.fa")
-    write_guides(fasta, db, bench.sample_guides(db, 1100, np.random.default_rng(7)))
+    write_guides(fasta, db, sample_guides(db, 1100, np.random.default_rng(7)))
     r = byte_check(db_path, fasta, "g20_mm4_2048", ("--maxMismatch", "4"))
     if guide_block_rows(r["guides"]) != 2048 or r["guides"] > 2048:
         raise AssertionError("%d guides are not one 2048-row block" % r["guides"])
@@ -337,13 +496,13 @@ def phase_main_path() -> dict:
     # the scan of the CLI's own guides, as it scans them
     scanner = DeviceScanner(db, DEVICE)
     t = time.perf_counter()
-    t_idx, g_idx, mm = bench.collect_hits(scanner, scanned, 4)
+    t_idx, g_idx, mm = collect_hits(scanner, scanned, 4)
     t_scan = time.perf_counter() - t
     t = time.perf_counter()
-    n_slice = bench.oracle_slice_check(db, scanned, 4, t_idx, g_idx, mm)
+    n_slice = oracle_slice_check(db, scanned, 4, t_idx, g_idx, mm)
     say("  DeviceScanner.scan of the CLI's %d guides: %d hits in %.4fs; "
         "oracle slice of %d targets matches (%d hits, %.1fs)"
-        % (scanned.shape[0], t_idx.size, t_scan, bench.ORACLE_SLICE, n_slice,
+        % (scanned.shape[0], t_idx.size, t_scan, ORACLE_SLICE, n_slice,
            time.perf_counter() - t))
 
     sub = os.path.join(WORK, "g400_guides32.fa")
@@ -354,7 +513,7 @@ def phase_main_path() -> dict:
     # main path's launch), then 1024 rows of it
     thr = max(len(db.pack.comparison_mask_positions()) - 4, 1)
     L = db.pack.total_scan_length
-    timed, err = {}, 0
+    timed, blocks, err = {}, {}, 0
     for g_rows, g in ((rows, scanned), (1024, scanned[:1024])):
         oh, _, _ = guide_onehot_matrix(g, db.pack, pad_to=g_rows)
         gi8 = guide_block_layout(torch.from_numpy(oh).to(DEVICE), L)
@@ -362,6 +521,7 @@ def phase_main_path() -> dict:
         ref = stage1_reference(scanner.codes, gi8, thr)
         err = max(err, max_abs_err(got, ref, "stage1 %d rows x the database"
                                    % g_rows))
+        blocks[g_rows] = (gi8, ref)
         # in turns: plain, kernel, kernel, plain
         p1 = cuda_ms(lambda: stage1_reference(scanner.codes, gi8, thr), 3)
         k1 = cuda_ms(lambda: stage1(scanner.codes, gi8, thr), 10)
@@ -374,45 +534,70 @@ def phase_main_path() -> dict:
                " [main path]" if g_rows == rows else "", timed[g_rows][0], k1,
                k2, timed[g_rows][1], p1, p2, int(got.sum())))
     k_ms, p_ms = timed[rows]
+    gi8, ref = blocks.pop(rows)
+    del blocks
+    lib = library_ms(prebuilt_onehot(scanner.codes, codes_onehot), gi8,
+                     lambda m: m.amax(dim=1) >= thr, ref)
+    b = product_bound(scanner.codes, rows)
+    say("  stage1 main path: bound %.3f ms (%s), library call %.3f ms"
+        % (b["bound_ms"], b["bound_by"], lib))
     return {"name": "stage1", "route": "cuda",
             "source": "flashfry_tpu_torch/csrc/stage1.cu",
             "replaces": STAGE1_TPU, "launches": launches,
-            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **b,
+            "library_ms": lib}
 
 
-def phase_variants() -> list:
-    """Phase 6: the port's experiment tool at its own size, then each
-    kernel against its plain version. Returns the kernels-line entries of
-    X2, X3, X5 and X6."""
-    for k in sv.KERNELS:
+def phase_variants():
+    """Phase 6: the port's experiment tool at its own size on all twelve
+    keys, then each kernel against its plain version, its bound and its
+    library call. Returns the kernels-line entries of X1-X6 and the times
+    of every key."""
+    kernels = (stage1, *sv.KERNELS)
+    for k in kernels:
         k.launches = 0
     t = time.perf_counter()
-    inp, results = tool.run(device=DEVICE, chunk=VARIANT_CHUNK, G=VARIANT_GUIDES)
-    launches = {k.__name__: k.launches for k in sv.KERNELS}
+    inp, results = tool.run(device=DEVICE, chunk=VARIANT_CHUNK, G=VARIANT_GUIDES,
+                            variants_spec=",".join(tool.ORDER))
+    launches = {k.__name__: k.launches for k in kernels}
     say("phase 6 stage-1 variants: the tool ran %d lines in %.1fs; kernel "
         "launches %s" % (len(results), time.perf_counter() - t, json.dumps(launches)))
     for name, n in launches.items():
         if n == 0:
             raise AssertionError("the tool launched no %s kernel" % name)
 
-    keys = [r["key"] for r in results if "key" in r]
+    vs = tool.variants(inp, [r["key"] for r in results if "key" in r])
     n, G = inp.codes.shape[1], inp.guide_i8.shape[0]
     timed = {}
-    for v in tool.variants(inp, keys):
-        err = max_abs_err(v.kernel(), v.plain(), v.name)
-        # in turns: plain, kernel, kernel, plain
-        p1 = cuda_ms(v.plain, 3)
-        k1 = cuda_ms(v.kernel, 10)
-        k2 = cuda_ms(v.kernel, 10)
-        p2 = cuda_ms(v.plain, 3)
-        timed[v.key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                        "max_abs_err": err}
-        say("  %-24s kernel %.3f ms (%.3f, %.3f), plain %.3f ms (%.3f, %.3f), "
-            "%.3g cmp/s, bitwise equal" % (v.name, timed[v.key]["ms"], k1, k2,
-                                           timed[v.key]["plain_ms"], p1, p2,
-                                           v.work / timed[v.key]["ms"] * 1e3))
+    for layout, onehot_T in tool.ONEHOT_T.items():
+        group = [v for v in vs if v.layout == layout]
+        oh = prebuilt_onehot(group[0].src, onehot_T)
+        for v in group:
+            err = max_abs_err(v.kernel(), v.plain(), v.name)
+            # in turns: plain, kernel, kernel, plain; then the library call
+            p1 = cuda_ms(v.plain, 5)
+            k1 = cuda_ms(v.kernel, 10)
+            k2 = cuda_ms(v.kernel, 10)
+            p2 = cuda_ms(v.plain, 5)
+            if v.rows is None:
+                # e_copy: row 0 of the one-hot, N bytes read and N written
+                b = bound(n, n)
+                lib = cuda_ms(lambda: v.src[:1].clone(), 10)
+                max_abs_err(v.src[:1].clone(), v.plain(), "library call")
+            else:
+                b = product_bound(v.src, v.rows.shape[0])
+                lib = library_ms(oh, v.rows, v.epilogue, v.plain())
+            timed[v.key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                            "max_abs_err": err, **b, "library_ms": lib}
+            say("  %-32s kernel %.3f ms (%.3f, %.3f), plain %.3f ms (%.3f, "
+                "%.3f), library %.3f ms, bound %.3f ms (%s), %.3g cmp/s, bitwise "
+                "equal" % (v.name, timed[v.key]["ms"], k1, k2,
+                           timed[v.key]["plain_ms"], p1, p2, lib, b["bound_ms"],
+                           b["bound_by"], v.work / timed[v.key]["ms"] * 1e3))
+        del oh
 
-    # dot's guide loop has to scale with G (nvcc kept it); copy's bytes/s
+    # dot's guide loop has to scale with G (nvcc kept it); the bytes/s of
+    # copy, which reads every row of the one-hot, as the TPU kernel did
     oh, thr = inp.expanded_onehot(), inp.thr
     half = inp.guide_i8[:G // 2].contiguous()
     max_abs_err(sv.expanded(oh, half, thr, "dot"),
@@ -428,13 +613,12 @@ def phase_variants() -> list:
     for name, (replaces, ks) in VARIANT_KERNELS.items():
         e = {"name": name, "route": "cuda", "source": VARIANTS_SRC,
              "replaces": replaces, "launches": launches[name],
-             "max_abs_err": max(timed[k]["max_abs_err"] for k in ks),
-             "ms": timed[ks[0]]["ms"], "plain_ms": timed[ks[0]]["plain_ms"]}
+             **{f: timed[ks[0]][f] for f in TIMED_FIELDS},
+             "max_abs_err": max(timed[k]["max_abs_err"] for k in ks)}
         if len(ks) > 1:
-            e["variants"] = {k: {"ms": timed[k]["ms"], "plain_ms": timed[k]["plain_ms"]}
-                             for k in ks}
+            e["variants"] = {k: {f: timed[k][f] for f in TIMED_FIELDS} for k in ks}
         entries.append(e)
-    return entries
+    return entries, timed
 
 
 def profile_main_path(reps: int = 3, trace_dir: str = "") -> None:
@@ -520,10 +704,13 @@ def main() -> int:
         err = phase_kernel_vs_plain()
         phase_byte_identity()
         kernel = phase_main_path()
-        variant_kernels = phase_variants()
+        variant_kernels, timed = phase_variants()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], err,
+                                timed["0"]["max_abs_err"], timed["g2"]["max_abs_err"])
+    # K1 at the tool's shape: its 1024 guide rows and 512 super rows
+    kernel["variants"] = {k: {f: timed[k][f] for f in TIMED_FIELDS} for k in ("0", "g2")}
     say("total %.1fs" % (time.perf_counter() - t0))
     print(json.dumps({"kernels": [kernel] + variant_kernels}))
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -2,9 +2,10 @@
 
 `python -m flashfry_tpu_torch discover` takes flashfry_tpu's discover flags
 (reference flag names and defaults), scans on `--device` (default cuda; a
-missing card is an error, never a silent CPU run) and writes byte-identical
-output. `index` is flashfry_tpu's host-only index command. Multi-process
-discover and the score / random / extract commands are not ported yet.
+missing card is an error, never a silent CPU run) or with `--backend numpy`
+on the host, and writes byte-identical output. `index` is a copy of
+flashfry_tpu's host-only index command. Multi-process discover and the
+score / random / extract commands are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,19 +16,29 @@ import sys
 import time
 from typing import Optional
 
-from flashfry_tpu.cli import _add_index
-from flashfry_tpu.cli import cmd_index as host_index
-from flashfry_tpu.database import load_database
-from flashfry_tpu.discovery import find_target_sites
-from flashfry_tpu.targetio import write_output
-from flashfry_tpu.utils import iterate_fasta
-
-from . import _numpy_compat  # noqa: F401  (load_database on numpy >= 2.1)
+from .database import load_database
 from .device import DEVICES, resolve_device
+from .discovery import find_target_sites
 from .engine import BACKENDS, ScanStats, discover
 from .ops.scan import DeviceScanner
+from .targetio import write_output
+from .utils import iterate_fasta
 
 logger = logging.getLogger("flashfry_tpu_torch")
+
+
+def _add_index(sub):
+    p = sub.add_parser("index", help="Generate a binary representation of the genome that can be used for off-target searches")
+    p.add_argument("--reference", "-reference", required=True)
+    p.add_argument("--database", "-database", required=True)
+    p.add_argument("--tmpLocation", "-tmpLocation", required=False, default=None,
+                   help="unused (kept for CLI parity with the reference)")
+    p.add_argument("--enzyme", "-enzyme", default="spCas9ngg")
+    p.add_argument("--binSize", "-binSize", type=int, default=7)
+    p.add_argument("--format", default="native", choices=["native", "flashfry"],
+                   help="on-disk format: columnar npz (default) or the "
+                        "reference's BGZF block format")
+    return p
 
 
 def _add_discover(sub):
@@ -63,6 +74,20 @@ def build_parser() -> argparse.ArgumentParser:
     _add_index(sub)
     _add_discover(sub)
     return ap
+
+
+def cmd_index(args) -> None:
+    from .database import build_database, save_database
+    from .standards import name_to_parameter_pack
+    pack = name_to_parameter_pack(args.enzyme)
+    logger.info("Discovering target sites in the input genome file...")
+    db = build_database(args.reference, pack, bin_width=args.binSize)
+    logger.info("Creating the final database file (%d targets)...", db.num_targets)
+    if args.format == "flashfry":
+        from .ffformat import export_flashfry_database
+        export_flashfry_database(db, args.database)
+    else:
+        save_database(db, args.database)
 
 
 def cmd_discover(args) -> dict:
@@ -134,7 +159,7 @@ def run(argv=None) -> Optional[dict]:
     """Parse argv and run the command; returns discover's report."""
     args = build_parser().parse_args(argv)
     t0 = time.time()
-    report = {"index": host_index, "discover": cmd_discover}[args.command](args)
+    report = {"index": cmd_index, "discover": cmd_discover}[args.command](args)
     logger.info("Total runtime %.2fs", time.time() - t0)
     return report
 

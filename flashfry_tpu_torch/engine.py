@@ -1,27 +1,27 @@
 """Off-target discovery on one device (PyTorch).
 
-Counterpart of the device branches of flashfry_tpu/engine.py. The host steps
-are shared: ScanStats, the overflow-cap hit collection (_collect_hits, native
-C++) and the host comparison counter are imported from flashfry_tpu.engine,
-and the numpy backend is flashfry_tpu's own host scan. What runs on the
-device is the logged comparison counter (pruned_comparisons_device) and the
-resident scan (ops.scan.DeviceScanner).
+Counterpart of flashfry_tpu/engine.py. The host steps are the port's own
+copies of that module's: ScanStats, the bin-pruning mask and host
+comparison counter, the numpy XOR/popcount scan (`backend="numpy"`, the
+host oracle) and the overflow-cap hit collection (_collect_hits, native
+C++). What runs on the device is the logged comparison counter
+(pruned_comparisons_device) and the resident scan (ops.scan.DeviceScanner).
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 from typing import List, Optional, Union
 
 import numpy as np
 import torch
 
-from flashfry_tpu.bitcoding import STRING_MASK
-from flashfry_tpu.database import Database
-from flashfry_tpu.discovery import DiscoveredSites
-from flashfry_tpu.engine import ScanStats, _collect_hits, pruned_comparisons
-from flashfry_tpu.targetio import GuideWithOffTargets
-from flashfry_tpu.utils import gc_content
+from .bitcoding import STRING_MASK
+from .database import Database
+from .discovery import DiscoveredSites
+from .targetio import GuideWithOffTargets
+from .utils import gc_content
 
 from .device import resolve_device
 from .ops.scan import DeviceScanner
@@ -32,6 +32,219 @@ __all__ = ["ScanStats", "discover", "pruned_comparisons",
 BACKENDS = ("torch", "numpy")
 
 
+@dataclass
+class ScanStats:
+    """Counters mirroring the reference's Traverser counters
+    (reference/traverser/Traverser.scala:66-74), plus phase timings for the
+    discover epilogue (scan_seconds covers the whole scan+collect+counter
+    span; collect/counter break out the host aggregation and the
+    pruned-comparisons bookkeeping so a slow run is attributable)."""
+    all_targets: int = 0
+    all_targets_and_positions: int = 0  # targets weighted by genomic positions
+    all_comparisons: int = 0          # FlashFry-equivalent comparisons (after pruning)
+    dense_comparisons: int = 0        # raw guide x target comparisons performed
+    scan_seconds: float = 0.0
+    collect_seconds: float = 0.0      # _collect_hits (cap rule + CSR assembly)
+    counter_seconds: float = 0.0      # pruned_comparisons_device bookkeeping
+
+
+def bin_guide_mask(db: Database, guide_longs: np.ndarray, max_mismatch: int) -> np.ndarray:
+    """(num_bins, G) bool — can bin b contain a <=max_mismatch hit for guide g?
+
+    One-shot vectorized version of OrderedBinTraversalFactory's precompute
+    (OrderedBinTraversalFactory.scala:146-173).
+    """
+    enc = db.bit_encoding()
+    w = db.bin_width
+    num_bins = db.num_bins
+    # bin b's sequence as an integer occupies the same bit positions for all
+    # bins: replicate binToLongComparitor vectorized.
+    mask = enc.comp_bitmask_for_bin(w)
+    p = db.pack
+    if p.five_prime_pam:
+        shift = np.uint64(2 * (p.total_scan_length - (w + p.pam_length)))
+    else:
+        shift = np.uint64(2 * (p.total_scan_length - w))
+    bins = (np.arange(num_bins, dtype=np.uint64) << shift) & STRING_MASK
+    g = np.asarray(guide_longs, dtype=np.uint64)
+    mm = enc.mismatches_cross(bins, g & mask)
+    return mm <= max_mismatch
+
+
+def pruned_comparisons(db: Database, guide_longs: np.ndarray,
+                       max_mismatch: int, guide_chunk: int = 4096) -> int:
+    """FlashFry-equivalent comparison count: each guide is compared only
+    against the targets of bins whose prefix is within max_mismatch of the
+    guide's (Traverser.scala:66-74 counts post-pruning comparisons; the
+    pruning predicate is OrderedBinTraversalFactory.scala:146-173 /
+    LinearTraversal.scala:82-97 — both traversals prune). Equals the sum the
+    masked numpy scan accumulates; computed here in O(bins x G) host time,
+    chunked over guides so a 10^5-guide batch never materializes a
+    (4^w x G) mask at once."""
+    counts = db.bin_target_counts().astype(np.int64)
+    g = np.asarray(guide_longs, dtype=np.uint64)
+    total = 0
+    for lo in range(0, g.shape[0], guide_chunk):
+        m = bin_guide_mask(db, g[lo:lo + guide_chunk], max_mismatch)
+        total += int(counts @ m.sum(axis=1, dtype=np.int64))
+    return total
+
+
+def _scan_numpy(db: Database, guide_longs: np.ndarray, max_mismatch: int,
+                stats: ScanStats, bin_mask: Optional[np.ndarray],
+                chunk: int = 1 << 20):
+    """Host scan: vectorized XOR+popcount over (G, chunk) tiles.
+
+    Yields (target_idx int64[:], guide_idx int64[:], mm int8[:]) per chunk,
+    target-major sorted (global scan order).
+    """
+    import logging
+    logger = logging.getLogger("flashfry_tpu_torch.engine")
+    enc = db.bit_encoding()
+    g = np.asarray(guide_longs, dtype=np.uint64)
+    n = db.num_targets
+    targets = db.targets
+    tgt_bins = None
+    if bin_mask is not None:
+        # per-target bin index, to mask pruned (guide, target) pairs
+        tgt_bins = np.repeat(np.arange(db.num_bins), db.bin_target_counts())
+    t0 = time.time()
+    for chunk_i, lo in enumerate(range(0, n, chunk)):
+        hi = min(n, lo + chunk)
+        if chunk_i and chunk_i % 64 == 0:
+            # progress-line parity (SeekTraverser.scala:93-99)
+            logger.info("Comparing the %sth chunk of %s targets; executed %s "
+                        "comparisons so far (%.1fs)", format(chunk_i, ","),
+                        format(hi - lo, ","), format(stats.all_comparisons, ","),
+                        time.time() - t0)
+        stats.all_targets_and_positions += int(db.pos_offsets[hi] - db.pos_offsets[lo])
+        sub_mask = None
+        if bin_mask is not None:
+            sub_mask = bin_mask[tgt_bins[lo:hi]]  # (T, G)
+            if not sub_mask.any():
+                continue
+        mm = enc.mismatches_cross(targets[lo:hi], g)  # (T, G): targets major
+        stats.dense_comparisons += (hi - lo) * g.shape[0]
+        hits = mm <= max_mismatch
+        if sub_mask is not None:
+            stats.all_comparisons += int(sub_mask.sum())
+            hits &= sub_mask
+        else:
+            stats.all_comparisons += (hi - lo) * g.shape[0]
+        stats.all_targets += hi - lo
+        t_idx, g_idx = np.nonzero(hits)
+        if t_idx.size:
+            yield t_idx + lo, g_idx, mm[t_idx, g_idx].astype(np.int8)
+
+
+def _collect_hits(db: Database, guides: List[GuideWithOffTargets],
+                  hit_iter, stats: Optional[ScanStats] = None) -> None:
+    """Apply hits to guides with the reference's overflow-cap rule: accept a
+    hit iff current_total < cap before adding (ResultsAggregator.updateOT ->
+    CRISPRSiteOT.addOT, crispr/CRISPRSiteOT.scala:41-46).
+
+    Fully vectorized: hits arrive in global target order per guide (each
+    guide lives in exactly one scan guide-block, and blocks stream their
+    triplets target-major), so a stable sort by guide index groups each
+    guide's hits in acceptance order; the cap is then an exclusive-cumsum
+    threshold over per-hit position counts, and the accepted coordinate
+    lists are one ragged gather from the database CSR arrays.
+    """
+    t_chunks, g_chunks = [], []
+    for t_idx, g_idx, _mm in hit_iter:
+        t_chunks.append(np.asarray(t_idx, dtype=np.int64))
+        g_chunks.append(np.asarray(g_idx, dtype=np.int64))
+    if not t_chunks:
+        return
+    t0 = time.time()  # post-scan host aggregation (the scan wait is above)
+    t = np.concatenate(t_chunks)
+    g = np.concatenate(g_chunks)
+    n_guides = len(guides)
+
+    # native one-pass collect: counting-scatter by guide + cap rule + CSR
+    # assembly reading the (possibly memory-mapped) database arrays in
+    # place — the numpy formulation below builds ~15 full-size temporaries
+    # and two argsorts, which costs ~25 s at 18.7M hits on hosts with slow
+    # first-touch page faults (the numpy path remains the oracle; tests
+    # pin equality)
+    from . import native as _native
+    caps_arr = np.fromiter((gu.overflow_cap for gu in guides),
+                           np.int64, n_guides)
+    r = _native.collect_hits(t, g, db.pos_offsets, db.positions, db.targets,
+                             caps_arr)
+    if r is not None:
+        hit_start, out_longs, coord_offsets, out_coords = r
+        for gi in range(n_guides):
+            s, e = int(hit_start[gi]), int(hit_start[gi + 1])
+            if s == e:
+                continue
+            offs = coord_offsets[s:e + 1] - coord_offsets[s]
+            guides[gi].set_ots_arrays(
+                out_longs[s:e],
+                out_coords[coord_offsets[s]:coord_offsets[e]], offs)
+        if stats is not None:
+            stats.collect_seconds += time.time() - t0
+        return
+
+    order = np.argsort(g, kind="stable")
+    t = t[order]
+    g = g[order]
+    # Gather per-target offsets/positions through the UNIQUE sorted target
+    # set: db.pos_offsets/db.positions are memory-mapped (3 GB each at hg38
+    # scale) and random fancy-indexing pays a ~4 KB page fault per element;
+    # ascending gathers ride readahead instead (~10 s -> <1 s at 145k hits).
+    u, inv = np.unique(t, return_inverse=True)
+    off_lo = np.asarray(db.pos_offsets[u], dtype=np.int64)
+    off_hi = np.asarray(db.pos_offsets[u + 1], dtype=np.int64)
+    lens_u = off_hi - off_lo
+
+    # per-guide hit segments
+    seg = np.searchsorted(g, np.arange(n_guides + 1, dtype=np.int64))
+    pos_counts = lens_u[inv]
+    cum = np.cumsum(pos_counts)
+    excl = cum - pos_counts                       # positions before this hit
+    seg_base = np.zeros(n_guides, dtype=np.int64)
+    nonempty = seg[:-1] < seg[1:]
+    seg_base[nonempty] = excl[seg[:-1][nonempty]]
+    within_excl = excl - seg_base[g]              # guide-local exclusive cumsum
+
+    caps = np.fromiter((gu.overflow_cap for gu in guides), np.int64, n_guides)
+    accept = (caps[g] <= 0) | (within_excl < caps[g])
+    t_acc = t[accept]
+    g_acc = g[accept]
+
+    # each unique target's position list, gathered ONCE in ascending order
+    pool_off = np.zeros(u.shape[0] + 1, dtype=np.int64)
+    np.cumsum(lens_u, out=pool_off[1:])
+    flat_u = (np.arange(int(pool_off[-1]), dtype=np.int64)
+              - np.repeat(pool_off[:-1], lens_u)
+              + np.repeat(off_lo, lens_u))
+    pool = np.asarray(db.positions[flat_u])
+
+    # ragged assembly of the accepted hits' lists from the in-RAM pool
+    inv_acc = inv[accept]
+    counts = pos_counts[accept]
+    out_off = np.zeros(t_acc.shape[0] + 1, dtype=np.int64)
+    np.cumsum(counts, out=out_off[1:])
+    total = int(out_off[-1])
+    flat = (np.arange(total, dtype=np.int64)
+            - np.repeat(out_off[:-1], counts)
+            + np.repeat(pool_off[inv_acc], counts))
+    coords = pool[flat]
+
+    seg_a = np.searchsorted(g_acc, np.arange(n_guides + 1, dtype=np.int64))
+    targets = db.targets
+    for gi in range(n_guides):
+        s, e = int(seg_a[gi]), int(seg_a[gi + 1])
+        if s == e:
+            continue
+        offs = out_off[s:e + 1] - out_off[s]
+        guides[gi].set_ots_arrays(targets[t_acc[s:e]],
+                                  coords[out_off[s]:out_off[e]], offs)
+    if stats is not None:
+        stats.collect_seconds += time.time() - t0
+
+
 def _pad_to(x: int, m: int) -> int:
     return -(-x // m) * m
 
@@ -40,7 +253,7 @@ def pruned_comparisons_device(db: Database, guide_longs: np.ndarray,
                               max_mismatch: int,
                               device: Union[str, torch.device],
                               guide_chunk: int = 4096) -> int:
-    """flashfry_tpu.engine.pruned_comparisons on a device: the FlashFry
+    """pruned_comparisons on a device: the FlashFry
     comparison count after bin pruning, as (Gc, 4w) x (4w, 4^w) int8
     products of guide-prefix and bin one-hots (torch._int_mm), thresholded
     at <= max_mismatch and weighted by each bin's target count. Exact:
@@ -120,22 +333,18 @@ def discover(db: Database, guide_sites: DiscoveredSites,
     """Run the discover phase; returns guides in output order.
 
     backend "torch" scans on `device` (a missing card raises); "numpy" is
-    flashfry_tpu's host scan, unchanged. scanner: a
+    the host scan of flashfry_tpu's numpy backend (bin-pruned XOR/popcount,
+    _scan_numpy), which ignores device and scanner. scanner: a
     DeviceScanner already holding this database, so repeat calls skip the
     upload; one built from another database raises ValueError."""
     if backend not in BACKENDS:
         raise ValueError("backend must be one of %s, got %r"
                          % (", ".join(BACKENDS), backend))
-    if backend == "numpy":
-        from flashfry_tpu.engine import discover as host_discover
-        return host_discover(db, guide_sites, max_mismatch=max_mismatch,
-                             maximum_off_targets=maximum_off_targets,
-                             min_gc=min_gc, max_gc=max_gc,
-                             force_linear=force_linear, backend="numpy",
-                             stats=stats)
-    dev = resolve_device(device)
-    if scanner is not None:
-        _check_scanner(scanner, db, dev)
+    dev = None
+    if backend == "torch":
+        dev = resolve_device(device)
+        if scanner is not None:
+            _check_scanner(scanner, db, dev)
     if stats is None:
         stats = ScanStats()
 
@@ -164,6 +373,16 @@ def discover(db: Database, guide_sites: DiscoveredSites,
     if not guides:
         return guides
     guide_longs = np.array([g.long_encoding for g in guides], dtype=np.uint64)
+
+    if dev is None:
+        # the numpy backend: traversal pruning pays only on the host scan
+        bmask = (None if force_linear
+                 else bin_guide_mask(db, guide_longs, max_mismatch))
+        t0 = time.time()
+        _collect_hits(db, guides, _scan_numpy(db, guide_longs, max_mismatch,
+                                              stats, bmask), stats)
+        stats.scan_seconds = time.time() - t0
+        return guides
 
     t0 = time.time()
     if not force_linear:

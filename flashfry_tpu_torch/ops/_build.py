@@ -87,11 +87,13 @@ def stage1_library() -> ctypes.CDLL:
 
 
 def stage1_variants_library() -> ctypes.CDLL:
-    """csrc/stage1_variants.cu: the experiment tool's X2, X3, X5, X6."""
+    """csrc/stage1_variants.cu: the experiment tool's X1-X6."""
     lib = load("stage1_variants")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn, extra in ((lib.ff_v3_int16_launch, []),
+    for fn, extra in ((lib.ff_v1_gloop_launch, []),
+                      (lib.ff_v3_int16_launch, []),
                       (lib.ff_v4_concat_onehot_launch, []),
+                      (lib.ff_v6_bf16out_launch, []),
                       (lib.ff_v5_tile_launch, [i]),
                       (lib.ff_expanded_launch, [i])):
         # (src, n, guides, g_rows, thr, [t_tile | mode], out, stream)

@@ -32,17 +32,91 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from flashfry_tpu.database import Database
-from flashfry_tpu.ops.scan import (PAD_CODE, guide_onehot_matrix,
-                                   interleaved_blocks, split_words)
-
+from ..bitcoding import STRING_MASK
+from ..database import Database
 from ..device import resolve_device
+from ..standards import ParameterPack
 from .scan_kernel import (CODE_ROWS, MAX_GUIDE_ROWS, codes_onehot,
                           guide_block_layout, stage1)
 
 _PAD_MM = 127        # mismatch count of guide padding rows (never a hit)
 COL_BATCH = 16384    # hit columns recounted per stage-2 batch
 SLAB = 1 << 22       # targets uploaded and expanded per step of the plane build
+DEFAULT_CAP = 1 << 12   # the JAX scan's stage-1 hit targets per chunk (the
+                        # experiment tool's gather size)
+
+
+# host-side preparation, as in flashfry_tpu/ops/scan.py
+
+def split_words(longs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """uint64 -> (lo32, hi16) as int32 arrays (sequence bits only)."""
+    seq = np.asarray(longs, dtype=np.uint64) & STRING_MASK
+    lo = (seq & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    hi = (seq >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    return lo, hi
+
+
+PAD_CODE = 4  # padding-column base code: matches no one-hot row, never hits
+
+
+def plane_codes(longs: np.ndarray, L: int, n_pad: Optional[int] = None) -> np.ndarray:
+    """Packed int64 targets -> (32, N_pad) int8 plane-major base codes.
+
+    Row i holds base i (0..3) of every target; rows >= L are zero. Padding
+    COLUMNS (targets beyond n) hold PAD_CODE everywhere: their one-hot
+    expansion is all-zero, so they can never reach the stage-1 threshold —
+    which lets the fused scan skip a whole per-chunk validity-mask pass.
+    This is the HBM-resident database layout (see module docstring)."""
+    seq = np.asarray(longs, dtype=np.uint64) & STRING_MASK
+    n = seq.shape[0]
+    if n_pad is None:
+        n_pad = n
+    out = np.zeros((CODE_ROWS, n_pad), dtype=np.int8)
+    for i in range(L):
+        s = np.uint64(2 * (L - 1 - i))
+        out[i, :n] = ((seq >> s) & np.uint64(3)).astype(np.int8)
+    out[:, n:] = PAD_CODE
+    return out
+
+
+def guide_onehot_matrix(guide_longs: np.ndarray, pack: ParameterPack,
+                        pad_to: int = 128) -> Tuple[np.ndarray, np.ndarray, int]:
+    """(G_pad, 4L) float32 one-hot guide matrix, masked positions zeroed.
+
+    Returns (onehot, n_active_adj, G) where n_active_adj[g] is |active|
+    for real guides and _PAD_MM for padding rows (so padding never 'hits').
+    """
+    L = pack.total_scan_length
+    active = pack.comparison_mask_positions()
+    g = np.asarray(guide_longs, dtype=np.uint64) & STRING_MASK
+    G = g.shape[0]
+    Gp = max(pad_to, int(np.ceil(G / pad_to)) * pad_to)
+    onehot = np.zeros((Gp, 4 * L), dtype=np.float32)
+    for i in active:
+        shift = np.uint64(2 * (L - 1 - i))
+        codes = ((g >> shift) & np.uint64(3)).astype(np.int64)
+        onehot[np.arange(G), 4 * i + codes] = 1.0
+    n_active = np.full(Gp, _PAD_MM, dtype=np.float32)
+    n_active[:G] = len(active)
+    return onehot, n_active, G
+
+
+def interleaved_blocks(n_guides: int, block: int):
+    """Deal guide indices round-robin into ceil(n/block) blocks.
+
+    Guide batches often arrive SEQUENCE-SORTED (library FASTAs decoded from
+    a sorted database, bench samples), which packs whole repeat families —
+    hundreds of near-identical guides — into single contiguous blocks: that
+    block's stage-1 hit-column and triplet counts explode while every other
+    block idles (measured: a 100k-guide hg38-scale library run escalated
+    col_cap to 2^20 and OOM'd HBM on the 4 GB stage-2 matrix). Round-robin
+    dealing spreads any sorted hot cluster evenly across blocks. Per-guide
+    output order is unaffected: each guide lives in exactly one block and
+    yields its hits target-major; the collector re-groups by guide index.
+    """
+    n_blocks = max(1, -(-max(n_guides, 1) // block))
+    return [np.arange(b, n_guides, n_blocks, dtype=np.int64)
+            for b in range(n_blocks)]
 
 
 def expand_codes(buf: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,

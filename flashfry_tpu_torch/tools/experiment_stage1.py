@@ -10,8 +10,9 @@ for the e_* variants, the (128, 2^23) int8 pre-expanded one-hot. Inputs come
 from numpy's generator seeded with 0 in the JAX tool's order, so both tools
 see the same targets, guides and gather columns.
 
-Every stage-1 variant runs through a hand-written CUDA kernel on a CUDA
-device ("0" and "g2" through csrc/stage1.cu, the others through
+Every stage-1 variant of the JAX tool's VARIANTS (the default set and "g2",
+"g2bf", "bf", "1") runs through a hand-written CUDA kernel on a CUDA device
+("0" and "g2" through csrc/stage1.cu, the others through
 csrc/stage1_variants.cu) and through its plain PyTorch version on the CPU.
 One line per variant, in the JAX tool's format: seconds per chunk, target-
 guide comparisons per second, and the first call's seconds (the kernel's
@@ -27,8 +28,7 @@ Where it differs from the JAX tool:
   the tool exits non-zero (the JAX tool printed FAILED and went on).
 - "0" and "g2" get the block-layout guides stage 1 takes; the JAX tool
   handed "0" the interleaved matrix, which the MXU times the same.
-- "1", "bf" and "g2bf" (X1, X4) are not ported yet and raise (ROADMAP.md
-  section 2); an unknown name raises too.
+- An unknown name raises.
 """
 
 from __future__ import annotations
@@ -42,22 +42,20 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from flashfry_tpu.bitcoding import BitEncoding
-from flashfry_tpu.ops.scan import (DEFAULT_CAP, guide_onehot_matrix,
-                                   plane_codes, split_words)
-from flashfry_tpu.standards import Cas9NGGParameterPack
-
+from ..bitcoding import BitEncoding
 from ..device import resolve_device
 from ..ops import stage1_variants as sv
-from ..ops.scan_kernel import guide_block_layout, stage1, stage1_reference
+from ..ops.scan import (DEFAULT_CAP, guide_onehot_matrix, plane_codes,
+                        split_words)
+from ..ops.scan_kernel import (codes_onehot, guide_block_layout, stage1,
+                               stage1_reference)
+from ..standards import Cas9NGGParameterPack
 
 VARIANTS = "0,3,4,5a,5b,e_full,e_dot,e_copy"   # the JAX tool's default
 CHUNK = 1 << 23
 GUIDES = 1024
 MAX_MM = 4
 REPS = 48
-UNPORTED = {"1": "X1 make_v1_gloop", "bf": "X4 make_v6_bf16out",
-            "g2bf": "X4 make_v6_bf16out"}
 # the JAX tool's order of execution
 ORDER = ("0", "g2", "g2bf", "bf", "1", "3", "4", "5a", "5b",
          "e_full", "e_dot", "e_copy")
@@ -104,6 +102,12 @@ def make_inputs(device, chunk: int = CHUNK, G: int = GUIDES) -> Inputs:
                   guide_blk=guide_block_layout(oh, L))
 
 
+# the (T, 128) int8 one-hot of T target columns that a kernel of each
+# layout computes from its source's columns; the expanded one-hot is its own
+ONEHOT_T = {"block": codes_onehot, "interleaved": sv.interleaved_onehot,
+            "expanded": lambda s: s}
+
+
 @dataclass
 class Variant:
     key: str
@@ -111,54 +115,91 @@ class Variant:
     kernel: Callable[[], torch.Tensor]   # the wrapper: kernel on CUDA
     plain: Callable[[], torch.Tensor]    # its plain PyTorch version
     work: int                            # target-guide comparisons
+    # the same function as one int8 product: the (32 or 128, N) tensor the
+    # kernel reads, the ONEHOT_T layout of its columns, the (g, 128) guide
+    # rows it reads, and the epilogue on the (T, g) int32 counts. e_copy
+    # takes no product: its output is row 0 of src (rows, epilogue None)
+    src: torch.Tensor
+    layout: str
+    rows: Optional[torch.Tensor]
+    epilogue: Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
 def parse_variants(spec: str) -> List[str]:
     """'0,3,e_full' -> keys in the JAX tool's order of execution; raises on
-    a name that is unknown or not ported."""
+    an unknown name."""
     which = [w for w in spec.split(",") if w]
     for w in which:
-        if w in UNPORTED:
-            raise NotImplementedError(
-                "variant %r (%s) is not ported yet: ROADMAP.md section 2"
-                % (w, UNPORTED[w]))
         if w not in ORDER:
             raise ValueError("unknown variant %r (known: %s)" % (w, ", ".join(ORDER)))
     return [k for k in ORDER if k in which]
 
 
 def variants(inp: Inputs, keys: List[str]) -> List[Variant]:
-    """The ported stage-1 variants named by keys, in that order."""
+    """The stage-1 variants named by keys, in that order."""
     codes, gi8, blk, thr = inp.codes, inp.guide_i8, inp.guide_blk, inp.thr
     work = codes.shape[1] * gi8.shape[0]
+    # "g2" and "g2bf" pair the guides: half the rows, the same logical work
+    # counted
+    if {"g2", "g2bf"} & set(keys):
+        sup = sv.super_rows(blk)
+    thr_bf = torch.tensor(thr, dtype=torch.bfloat16, device=codes.device)
+
+    def hit(m):
+        return m.amax(dim=1) >= thr
+
+    def hit_bf(m):
+        return m.to(torch.bfloat16).amax(dim=1) >= thr_bf
+
     out = []
     for k in keys:
         if k == "0":
             v = Variant(k, "v0 stage1 (K1)", lambda: stage1(codes, blk, thr),
-                        lambda: stage1_reference(codes, blk, thr), work)
+                        lambda: stage1_reference(codes, blk, thr), work,
+                        codes, "block", blk, hit)
         elif k == "g2":
-            # paired guides: half the stage-1 rows, same logical work counted
-            sup = torch.maximum(blk[0::2], blk[1::2]).contiguous()
             v = Variant(k, "group2 (%d super rows)" % sup.shape[0],
-                        lambda s=sup: stage1(codes, s, thr),
-                        lambda s=sup: stage1_reference(codes, s, thr), work)
+                        lambda: stage1(codes, sup, thr),
+                        lambda: stage1_reference(codes, sup, thr), work,
+                        codes, "block", sup, hit)
+        elif k == "g2bf":
+            v = Variant(k, "group2 + bf16 epilogue (%d super rows)" % sup.shape[0],
+                        lambda: sv.v6_bf16out(codes, sup, thr),
+                        lambda: sv.v6_bf16out_reference(codes, sup, thr), work,
+                        codes, "block", sup, hit_bf)
+        elif k == "bf":
+            v = Variant(k, "v6 bf16 epilogue", lambda: sv.v6_bf16out(codes, blk, thr),
+                        lambda: sv.v6_bf16out_reference(codes, blk, thr), work,
+                        codes, "block", blk, hit_bf)
+        elif k == "1":
+            v = Variant(k, "v1 g-loop 128", lambda: sv.v1_gloop(codes, gi8, thr),
+                        lambda: sv.v1_gloop_reference(codes, gi8, thr), work,
+                        codes, "interleaved",
+                        gi8[:gi8.shape[0] // sv.G_TILE * sv.G_TILE], hit)
         elif k == "3":
             v = Variant(k, "v3 int16 acc", lambda: sv.v3_int16(codes, gi8, thr),
-                        lambda: sv.v3_int16_reference(codes, gi8, thr), work)
+                        lambda: sv.v3_int16_reference(codes, gi8, thr), work,
+                        codes, "interleaved", gi8, hit)
         elif k == "4":
             v = Variant(k, "v4 concat one-hot",
                         lambda: sv.v4_concat_onehot(codes, blk, thr),
-                        lambda: sv.v4_concat_onehot_reference(codes, blk, thr), work)
+                        lambda: sv.v4_concat_onehot_reference(codes, blk, thr), work,
+                        codes, "block", blk, hit)
         elif k in ("5a", "5b"):
             tile = 2048 if k == "5a" else 8192
             v = Variant(k, "v%s tile %d" % (k, tile),
                         lambda t=tile: sv.v5_tile(codes, gi8, thr, t),
-                        lambda: sv.v5_tile_reference(codes, gi8, thr), work)
+                        lambda: sv.v5_tile_reference(codes, gi8, thr), work,
+                        codes, "interleaved", gi8, hit)
         else:
             mode, oh = k[2:], inp.expanded_onehot()
+            rows, epilogue = {"full": (gi8, hit),
+                              "dot": (gi8, lambda m: m[:, 0].to(torch.int8)),
+                              "copy": (None, None)}[mode]
             v = Variant(k, "expanded " + mode,
                         lambda m=mode: sv.expanded(oh, gi8, thr, m),
-                        lambda m=mode: sv.expanded_reference(oh, gi8, thr, m), work)
+                        lambda m=mode: sv.expanded_reference(oh, gi8, thr, m), work,
+                        oh, "expanded", rows, epilogue)
         out.append(v)
     return out
 
@@ -277,8 +318,8 @@ def main(argv=None) -> int:
                    help="cuda (default; no card is an error) or cpu (the "
                         "plain versions)")
     p.add_argument("--variants", default=VARIANTS,
-                   help="comma-separated names of the JAX tool's VARIANTS "
-                        "(default %(default)s)")
+                   help="comma-separated names of the JAX tool's VARIANTS, "
+                        "any of %s (default %%(default)s)" % ",".join(ORDER))
     args = p.parse_args(argv)
     run(device=args.device, variants_spec=args.variants)
     return 0

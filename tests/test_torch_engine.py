@@ -15,7 +15,6 @@ import pytest
 import torch
 
 import bench
-import flashfry_tpu_torch._numpy_compat  # noqa: F401  (load_database, numpy >= 2.1)
 from flashfry_tpu import cli as jax_cli
 from flashfry_tpu.database import (build_database_from_sites, load_database,
                                    save_database)

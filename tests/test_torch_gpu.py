@@ -1,7 +1,8 @@
 """The port on a CUDA card: kernel vs plain version, scanner, counter, CLI.
 
 Every test here is marked `gpu` and skips without a card. The machine with
-the card has no JAX, so this file imports none and runs without the
+the card has no JAX, so this file imports only the port (whose numpy
+backend and host modules are its own copies) and runs without the
 repository's conftest (which pins JAX to the CPU):
 
     PYTHONPATH=. python -m pytest tests/test_torch_gpu.py --noconftest -q
@@ -14,18 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-import flashfry_tpu_torch._numpy_compat  # noqa: F401  (load_database, numpy >= 2.1)
-from flashfry_tpu import cli as host_cli
-from flashfry_tpu.database import build_database_from_sites, save_database
-from flashfry_tpu.discovery import find_target_sites
-from flashfry_tpu.engine import pruned_comparisons
-from flashfry_tpu.ops.scan import guide_onehot_matrix, plane_codes
-from flashfry_tpu.standards import Cas9NGGParameterPack, Cpf1ParameterPack
 from flashfry_tpu_torch import cli
-from flashfry_tpu_torch.engine import pruned_comparisons_device
+from flashfry_tpu_torch.database import build_database_from_sites, save_database
+from flashfry_tpu_torch.discovery import find_target_sites
+from flashfry_tpu_torch.engine import pruned_comparisons, pruned_comparisons_device
 from flashfry_tpu_torch.ops import scan_kernel as tk
 from flashfry_tpu_torch.ops import stage1_variants as sv
-from flashfry_tpu_torch.ops.scan import DeviceScanner
+from flashfry_tpu_torch.ops.scan import DeviceScanner, guide_onehot_matrix, plane_codes
+from flashfry_tpu_torch.standards import Cas9NGGParameterPack, Cpf1ParameterPack
 from flashfry_tpu_torch.tools import experiment_stage1 as tool
 
 pytestmark = pytest.mark.gpu
@@ -70,8 +67,9 @@ def test_stage1_kernel_equals_plain(cuda):
 
 
 def test_stage1_variant_kernels_equal_plain(cuda):
-    """X2, X3, X5 (three tiles) and X6 (three modes) on a ragged width with a
-    PAD_CODE tail, at 128 and 2048 guide rows, mm 0..5: bitwise equal."""
+    """X1, X2, X3, X4 (on the rows and on their super rows), X5 (three
+    tiles) and X6 (three modes) on a ragged width with a PAD_CODE tail, at
+    128 and 2048 guide rows, mm 0..5: bitwise equal."""
     rng = np.random.default_rng(9)
     n_real, n = 150_001, 153_333
     targets = rng.integers(0, 1 << 46, size=n_real, dtype=np.uint64)
@@ -88,11 +86,15 @@ def test_stage1_variant_kernels_equal_plain(cuda):
         goh = torch.from_numpy(oh).to(cuda)
         gi8 = sv.interleaved_guides(goh, 23)
         blk = tk.guide_block_layout(goh, 23)
+        sup = sv.super_rows(blk)
         for mm in range(6):
             thr = 20 - mm
-            pairs = [(sv.v3_int16(codes, gi8, thr), sv.v3_int16_reference(codes, gi8, thr)),
+            pairs = [(sv.v1_gloop(codes, gi8, thr), sv.v1_gloop_reference(codes, gi8, thr)),
+                     (sv.v3_int16(codes, gi8, thr), sv.v3_int16_reference(codes, gi8, thr)),
                      (sv.v4_concat_onehot(codes, blk, thr),
                       sv.v4_concat_onehot_reference(codes, blk, thr)),
+                     (sv.v6_bf16out(codes, blk, thr), sv.v6_bf16out_reference(codes, blk, thr)),
+                     (sv.v6_bf16out(codes, sup, thr), sv.v6_bf16out_reference(codes, sup, thr)),
                      (sv.expanded(onehot, gi8, thr, "full"),
                       sv.expanded_reference(onehot, gi8, thr, "full"))]
             want = sv.v5_tile_reference(codes, gi8, thr)
@@ -106,15 +108,36 @@ def test_stage1_variant_kernels_equal_plain(cuda):
             got = sv.expanded(onehot, gi8, 16, mode)
             assert torch.equal(got, sv.expanded_reference(onehot, gi8, 16, mode)), (G, mode)
     assert hits > 0
-    assert [k.launches - b for k, b in zip(sv.KERNELS, before)] == [12, 12, 36, 16]
+    assert [k.launches - b for k, b in zip(sv.KERNELS, before)] == [12, 12, 12, 24, 36, 16]
+
+
+@pytest.mark.parametrize("G", [64, 192, 1000])
+def test_v1_gloop_kernel_reads_only_whole_tiles(cuda, G):
+    """X1 with a ragged tail of guide rows (64: no whole tile, the max stays
+    -1) equals its plain version, at thresholds that hit and at -1."""
+    rng = np.random.default_rng(G)
+    n = 70_001
+    targets = rng.integers(0, 1 << 46, size=n, dtype=np.uint64)
+    codes = torch.from_numpy(plane_codes(targets, 23)).to(cuda)
+    oh, _, _ = guide_onehot_matrix(targets[rng.integers(0, n, size=G)],
+                                   Cas9NGGParameterPack, pad_to=G)
+    gi8 = sv.interleaved_guides(torch.from_numpy(oh).to(cuda), 23)
+    for thr in (20, 16, -1):
+        got = sv.v1_gloop(codes, gi8, thr)
+        assert torch.equal(got, sv.v1_gloop_reference(codes, gi8, thr)), (G, thr)
+        if G < 128:
+            assert bool((got == int(-1 >= thr)).all())
+        elif thr == 20:
+            assert bool(got.any())
 
 
 def test_experiment_tool_on_cuda(cuda):
-    """The port's tool at a small size: every default variant through its
+    """The port's tool at a small size: all twelve keys, each through its
     kernel, held against its plain version inside run()."""
     before = [k.launches for k in sv.KERNELS] + [tk.stage1.launches]
-    _inp, results = tool.run(device="cuda", chunk=1 << 16, G=256, reps=1)
-    assert [r["max_abs_err"] for r in results if "key" in r] == [0] * 8
+    _inp, results = tool.run(device="cuda", chunk=1 << 16, G=256, reps=1,
+                             variants_spec=",".join(tool.ORDER))
+    assert [r["max_abs_err"] for r in results if "key" in r] == [0] * 12
     after = [k.launches for k in sv.KERNELS] + [tk.stage1.launches]
     assert all(a > b for a, b in zip(after, before))
 
@@ -153,5 +176,5 @@ def test_discover_cli_on_cuda_byte_identical_to_numpy(cuda, tmp_path):
                 "--positionOutput", "--maxMismatch", k]
         mine, ref = str(tmp_path / ("t" + k)), str(tmp_path / ("n" + k))
         cli.run(base + ["--output", mine, "--device", "cuda"])
-        assert host_cli.main(base + ["--output", ref, "--backend", "numpy"]) == 0
+        cli.run(base + ["--output", ref, "--backend", "numpy"])
         assert filecmp.cmp(mine, ref, shallow=False) and os.path.getsize(mine)

@@ -3,10 +3,12 @@ Pallas kernels of tools/experiment_stage1.py.
 
 Each plain version (reached through its wrapper, which takes CPU tensors
 there) must give exactly the bytes of its Pallas maker run in interpret
-mode: X2 make_v3_int16, X3 make_v4_concat_onehot, X5 make_v5_tile at 2048
-and 8192, X6 make_expanded in its three modes. Two enzymes, max_mismatch
-0..5, PAD_CODE columns and guide padding rows; every value is an integer,
-so every comparison is exact (tolerance 0).
+mode: X1 make_v1_gloop (with its dropped tail rows and its G < 128 case),
+X2 make_v3_int16, X3 make_v4_concat_onehot, X4 make_v6_bf16out (on G guide
+rows and on G/2 super rows), X5 make_v5_tile at 2048 and 8192, X6
+make_expanded in its three modes. Two enzymes, max_mismatch 0..5, PAD_CODE
+columns and guide padding rows; every value is an integer (X4's bf16 counts
+are exact), so every comparison is exact (tolerance 0).
 """
 
 import jax.numpy as jnp
@@ -15,6 +17,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from flashfry_tpu.bitcoding import BitEncoding
 from flashfry_tpu.ops.scan import PAD_CODE, guide_onehot_matrix, plane_codes
 from flashfry_tpu.standards import Cas9NGGParameterPack, Cpf1ParameterPack
 from flashfry_tpu_torch.ops import stage1_variants as sv
@@ -75,11 +78,18 @@ def pallas(make, src, guides):
 
 # variant -> (JAX maker of thr, guide layout, input, port wrapper)
 HIT_VARIANTS = {
+    "X1_v1_gloop": (lambda thr: X.make_v1_gloop(thr, N_PAD, G), "i8", "codes",
+                    lambda c, g, thr: sv.v1_gloop(c, g, thr)),
     "X2_v3_int16": (lambda thr: X.make_v3_int16(thr, N_PAD, G), "i8", "codes",
                     lambda c, g, thr: sv.v3_int16(c, g, thr)),
     "X3_v4_concat_onehot": (lambda thr: X.make_v4_concat_onehot(thr, N_PAD, G),
                             "blk", "codes",
                             lambda c, g, thr: sv.v4_concat_onehot(c, g, thr)),
+    "X4_v6_bf16out": (lambda thr: X.make_v6_bf16out(thr, N_PAD, G), "blk",
+                      "codes", lambda c, g, thr: sv.v6_bf16out(c, g, thr)),
+    "X4_v6_bf16out_super_rows": (lambda thr: X.make_v6_bf16out(thr, N_PAD, G // 2),
+                                 "sup", "codes",
+                                 lambda c, g, thr: sv.v6_bf16out(c, g, thr)),
     "X5_v5_tile_2048": (lambda thr: X.make_v5_tile(thr, N_PAD, G, 2048), "i8",
                         "codes", lambda c, g, thr: sv.v5_tile(c, g, thr, 2048)),
     "X5_v5_tile_8192": (lambda thr: X.make_v5_tile(thr, N_PAD, G, 8192), "i8",
@@ -90,11 +100,19 @@ HIT_VARIANTS = {
 }
 
 
+def super_rows(blk):
+    """The tools' "g2" pairing: row j = max of guide rows 2j and 2j+1."""
+    if isinstance(blk, torch.Tensor):
+        return sv.super_rows(blk)
+    return np.asarray(jnp.maximum(jnp.asarray(blk)[0::2], jnp.asarray(blk)[1::2]))
+
+
 def port_inputs(codes, oh, L):
     c = torch.from_numpy(codes)
     g = torch.from_numpy(oh)
+    blk = guide_block_layout(g, L)
     return {"codes": c, "onehot": sv.expand_onehot(c, L),
-            "i8": sv.interleaved_guides(g, L), "blk": guide_block_layout(g, L)}
+            "i8": sv.interleaved_guides(g, L), "blk": blk, "sup": super_rows(blk)}
 
 
 @pytest.mark.parametrize("pack", PACKS, ids=lambda p: p.name)
@@ -107,7 +125,8 @@ def test_plain_hit_bytes_equal_pallas_interpret(variant, pack):
     mine = port_inputs(codes, oh, L)
     guide_i8, guide_blk = tool_guides(oh, L)
     jax_src = codes if src == "codes" else tool_onehot(codes, L)
-    jax_guides = guide_i8 if layout == "i8" else guide_blk
+    jax_guides = {"i8": guide_i8, "blk": guide_blk,
+                  "sup": super_rows(guide_blk)}[layout]
     launches = [k.launches for k in sv.KERNELS]
     n_hits = []
     for mm in range(6):
@@ -163,8 +182,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     codes = torch.full((32, 4096), PAD_CODE, dtype=torch.int8)
     onehot = torch.zeros((128, 4096), dtype=torch.int8)
     guides = torch.zeros((128, 128), dtype=torch.int8)
-    calls = [lambda c, g: sv.v3_int16(c, g, 16),
+    calls = [lambda c, g: sv.v1_gloop(c, g, 16),
+             lambda c, g: sv.v3_int16(c, g, 16),
              lambda c, g: sv.v4_concat_onehot(c, g, 16),
+             lambda c, g: sv.v6_bf16out(c, g, 16),
              lambda c, g: sv.v5_tile(c, g, 16, 2048)]
     bad = [
         (codes.to(torch.int32), guides, TypeError),
@@ -190,8 +211,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
             sv.expanded(c, g, 16, "full")
     with pytest.raises(ValueError):
         sv.v3_int16(codes, guides, 1 << 15)       # int16 threshold
-    with pytest.raises(ValueError):
-        sv.v4_concat_onehot(codes, guides, 1 << 31)
+    for call in (sv.v1_gloop, sv.v4_concat_onehot, sv.v6_bf16out):
+        with pytest.raises(ValueError):
+            call(codes, guides, 1 << 31)
     for t_tile in (0, -1):
         with pytest.raises(ValueError):
             sv.v5_tile(codes, guides, 16, t_tile)
@@ -226,10 +248,87 @@ def test_tool_runs_its_default_variants_and_gather_section_on_cpu(capsys):
     assert [k.launches for k in sv.KERNELS] == launches
 
 
-@pytest.mark.parametrize("name", ["1", "bf", "g2bf"])
-def test_tool_unported_variants_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tool.main(["--device", "cpu", "--variants", "3," + name])
+@pytest.mark.parametrize("G_rows", [192, 64])
+def test_v1_gloop_reads_only_whole_guide_tiles(G_rows):
+    """X1 at G = 192: rows 128..191 hold exact copies of targets, and the TPU
+    kernel never reads them; at G = 64 it reads no row, so its max stays -1
+    and every byte is -1 >= thr (thr = -1 then hits everywhere)."""
+    pack = Cas9NGGParameterPack
+    L = pack.total_scan_length
+    codes, oh = make_case(pack, seed=G_rows)
+    rng = np.random.default_rng(G_rows)
+    real = codes[:L, :N_REAL].astype(np.uint64)
+    longs = sum(real[i] << np.uint64(2 * (L - 1 - i)) for i in range(L))
+    tail = longs[rng.integers(0, N_REAL, size=64)]
+    tail_oh, _, _ = guide_onehot_matrix(tail, pack, pad_to=64)
+    oh = np.concatenate([oh, tail_oh])[:G_rows]
+    mine = port_inputs(codes, oh, L)
+    jax_i8 = tool_guides(oh, L)[0]
+    for thr in (16, 0, -1):
+        want = pallas(lambda: X.make_v1_gloop(thr, N_PAD, G_rows), codes, jax_i8)
+        got = sv.v1_gloop(mine["codes"], mine["i8"], thr)
+        assert np.array_equal(got.numpy(), want), (G_rows, thr)
+        every_row = sv.v5_tile_reference(mine["codes"], mine["i8"], thr)
+        if G_rows == 64:
+            assert bool((got == int(-1 >= thr)).all()), thr
+            if thr == 0:
+                assert bool(every_row.all()) and not bool(got.any())
+        elif thr == 16:
+            # the tail's exact copies hit; X1 does not see them
+            assert int(every_row.sum()) >= int(got.sum()) + 60
+
+
+@pytest.mark.parametrize("key", ["1", "bf", "g2bf"])
+def test_tool_x1_x4_keys_equal_the_pallas_makers_on_the_jax_tools_inputs(key):
+    """The port's tool on the CPU vs the JAX tool's own inputs (drawn as its
+    main() draws them) through its makers in interpret mode."""
+    chunk, G_tool = 8192, 256
+    inp = tool.make_inputs("cpu", chunk=chunk, G=G_tool)
+    pack = Cas9NGGParameterPack
+    L = pack.total_scan_length
+    rng = np.random.default_rng(0)
+    codes_g = rng.integers(0, 4, size=(G_tool, L))
+    longs = BitEncoding(pack).encode_batch(
+        ["".join("ACGT"[c] for c in row) for row in codes_g])
+    guide_oh, _, _ = guide_onehot_matrix(longs, pack, pad_to=G_tool)
+    targets = rng.integers(0, 2 ** 46, size=chunk, dtype=np.uint64)
+    codes = plane_codes(targets, L)
+    guide_i8, guide_blk = tool_guides(guide_oh, L)
+    make, guides = {
+        "1": (lambda: X.make_v1_gloop(16, chunk, G_tool), guide_i8),
+        "bf": (lambda: X.make_v6_bf16out(16, chunk, G_tool), guide_blk),
+        "g2bf": (lambda: X.make_v6_bf16out(16, chunk, G_tool // 2),
+                 super_rows(guide_blk)),
+    }[key]
+    want = pallas(make, codes, guides)
+    (v,) = tool.variants(inp, [key])
+    got = v.kernel()
+    assert np.array_equal(got.numpy(), want), key
+    assert torch.equal(got, v.plain()) and v.work == chunk * G_tool
+    # random guides: X1 and X4 equal X3; the super rows hit far more often
+    x3 = sv.v4_concat_onehot(inp.codes, inp.guide_blk, inp.thr)
+    if key == "g2bf":
+        assert int(got.sum()) > int(x3.sum())
+    else:
+        assert torch.equal(got, x3)
+
+
+def test_tool_main_runs_every_key_on_cpu(capsys, monkeypatch):
+    """`--variants` takes all twelve keys of the JAX tool; main() runs them
+    (here at a small size)."""
+    sizes, run = {}, tool.run
+
+    def small_run(device, variants_spec):
+        sizes["keys"] = tool.parse_variants(variants_spec)
+        return run(device=device, chunk=4096, G=128, variants_spec=variants_spec,
+                   reps=1)
+
+    monkeypatch.setattr(tool, "run", small_run)
+    assert tool.main(["--device", "cpu", "--variants", ",".join(tool.ORDER)]) == 0
+    assert sizes["keys"] == list(tool.ORDER)
+    out = capsys.readouterr().out
+    for name in ("v1 g-loop 128", "v6 bf16 epilogue", "group2 + bf16 epilogue"):
+        assert name in out
 
 
 def test_tool_rejects_unknown_variants_and_a_missing_card(monkeypatch):
@@ -239,6 +338,26 @@ def test_tool_rejects_unknown_variants_and_a_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         tool.run(device="cuda", chunk=4096, G=8)
+
+
+@pytest.mark.parametrize("key", tool.ORDER)
+def test_tool_variant_equals_its_product_form(key):
+    """Each variant's src, layout, guide rows and epilogue (what a library
+    call of the same function takes) give its plain version's bytes: the
+    one-hot of src's columns times the rows, then the epilogue; e_copy is
+    row 0 of src."""
+    inp = tool.make_inputs("cpu", chunk=4096, G=192)
+    (v,) = tool.variants(inp, [key])
+    want = v.plain().reshape(-1).to(torch.int8)
+    if v.rows is None:
+        got = v.src[:1].clone().reshape(-1)
+    else:
+        oh = tool.ONEHOT_T[v.layout](v.src.t()).contiguous()
+        got = v.epilogue(torch._int_mm(oh, v.rows.t().contiguous())).to(torch.int8)
+    assert v.src.shape[1] == 4096 and torch.equal(got, want), key
+    # X1 reads the one whole 128-row tile of 192 rows; g2 and g2bf 96 super rows
+    if v.rows is not None:
+        assert v.rows.shape[0] == {"1": 128, "g2": 96, "g2bf": 96}.get(key, 192)
 
 
 def test_tool_group2_runs_stage1_on_super_rows():
