@@ -11,7 +11,9 @@ each of which fails the run on any mismatch:
   2. build of the CUDA kernels from csrc/, one nvcc per source, all started
      together (timed, with ptxas report);
   3. kernel vs its plain PyTorch version, bitwise, for all six enzymes,
-     max_mismatch 0..5, 128 and 2048 guide rows, a ragged N and padding;
+     every thr from 1 to the active positions, guide blocks of 1, 15, 16,
+     17, 100, 128 and 2048 rows and 512 super rows, a ragged N and padding
+     columns, one counted launch per call;
   4. 20 Mbp repeat-rich genome: the port's discover CLI output on the card
      is byte-identical to the port's own `--backend numpy` CLI (the host
      XOR/popcount scan, which the CPU tests hold byte for byte to
@@ -23,8 +25,9 @@ each of which fails the run on any mismatch:
      seconds, the comparison counter against the host counter, the scan of
      the CLI's own guides against the numpy oracle on a 2M-target slice, a
      32-guide byte check against the numpy CLI, stage-1 launches > 0, and
-     stage-1 kernel vs plain, bitwise and timed, at the main path's shape
-     (the CLI's 2048-row guide block x the whole database) and at 1024 rows;
+     stage-1 kernel vs plain, bitwise and timed, with its bound and library
+     call, at the main path's shape (the CLI's 2048-row guide block x the
+     whole database) and at 1024 rows;
   6. stage-1 variants at the experiment tool's size: the port's tool
      (`flashfry_tpu_torch.tools.experiment_stage1`) runs all twelve keys of
      the JAX tool on (32, 2^23) codes x 1024 guides and the (128, 2^23)
@@ -34,13 +37,17 @@ each of which fails the run on any mismatch:
      and timed beside it, X6 dot at 512 guides, and X6 copy's bytes/s.
 
 Beside each kernel's time the script computes its bound, the larger of its
-int8 operations (the one-hot product as the TPU kernel computes it, 2 x 128
-x G x N) over the H100's published 1,979 TOP/s and the bytes the function
-needs (each input read once, each output written once) over 3.35 TB/s, and
-times the library call: torch._int_mm of a pre-built (N, 128) one-hot
-(built before timing) by the guides, then the epilogue, in the plain
-version's column chunks; for X6 copy, whose output is one-hot row 0, a
-clone of that row.
+int8 operations (the one-hot product over the columns it needs: 2 x 96 x G
+x N for K1, whose guides have no base past position 23; 2 x 128 x G x N,
+as the TPU kernel computes it, for X1-X6, with K1's 128-column figure
+beside its own as bound_ms_128) over the H100's published 1,979 TOP/s and
+the bytes the function needs (each input read once, each output written
+once) over 3.35 TB/s, and times the library call: torch._int_mm of a
+pre-built (N, 128) one-hot ((N, 96) for K1; built before timing) by the
+guides, then the epilogue, in the plain version's column chunks; for X6
+copy, whose output is one-hot row 0, a clone of that row. For K1 it also
+times the launcher alone on pre-compacted guides (kernel_only_ms), so that
+the wrapper's own cost per call shows.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
@@ -78,8 +85,8 @@ from flashfry_tpu_torch.ops.scan import (  # noqa: E402
     guide_onehot_matrix, split_words)
 from flashfry_tpu_torch.ops import stage1_variants as sv  # noqa: E402
 from flashfry_tpu_torch.ops.scan_kernel import (  # noqa: E402
-    _REF_ELEMS, OH_ROWS, codes_onehot, guide_block_layout, stage1,
-    stage1_reference)
+    _REF_ELEMS, K_COLS, OH_ROWS, codes_onehot_compact, compact_guides,
+    guide_block_layout, launch, stage1, stage1_reference)
 from flashfry_tpu_torch.tools import experiment_stage1 as tool  # noqa: E402
 from flashfry_tpu_torch.tools.experiment_stage1 import max_abs_err  # noqa: E402
 
@@ -89,6 +96,9 @@ WORK = os.path.join(ROOT, "_smoke_work")
 DEVICE = "cuda"
 SMALL_MB, MAIN_MB, MAIN_GUIDES = 20, 400, 1000
 STAGE1_TPU = "flashfry_tpu/ops/scan_kernel.py:79"
+# phase 3's guide blocks: rows around the kernel's 16-row m-tile, the
+# discover blocks, and the tool's paired rows
+PHASE3_ROWS = (1, 15, 16, 17, 100, 128, "512 super rows", 2048)
 VARIANT_CHUNK, VARIANT_GUIDES = tool.CHUNK, tool.GUIDES  # the tool's own size
 KERNEL_LIBS = ("stage1", "stage1_variants")
 VARIANTS_SRC = "flashfry_tpu_torch/csrc/stage1_variants.cu"
@@ -106,8 +116,12 @@ VARIANT_KERNELS = {
 # device-memory bytes/s
 PEAK_INT8_OPS, PEAK_BYTES = 1.979e15, 3.35e12
 ORACLE_SLICE = 2_000_000  # targets cross-checked against the numpy oracle
-# a kernel's numbers in the kernels line, per tool key
+# a kernel's numbers in the kernels line, per tool key; K1 adds
+# bound_ms_128 (its bound counted over the 128 block-layout columns, as the
+# TPU kernel counts it) and kernel_only_ms (the launcher on pre-compacted
+# guides, without the wrapper's checks and compaction)
 TIMED_FIELDS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+K1_FIELDS = TIMED_FIELDS + ("bound_ms_128", "kernel_only_ms")
 
 
 def say(*a) -> None:
@@ -132,20 +146,47 @@ def bound(read: int, written: int, ops: int = 0) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def product_bound(src: torch.Tensor, g_rows: int) -> dict:
+def product_bound(src: torch.Tensor, g_rows: int, width: int = OH_ROWS) -> dict:
     """bound of one byte per column of src from its one-hot product with
-    g_rows guide rows, as the TPU kernel computes it: 2 x 128 x g_rows x N
-    int8 operations; src and the guides read, N bytes written."""
+    g_rows guide rows of `width` columns: 2 x width x g_rows x N int8
+    operations; the part of src the product needs (width / 128 of its rows:
+    all of a one-hot, the 24 code rows of K1's 96 columns) and the guides
+    read, N bytes written. X1-X6 take the 128 columns the TPU kernel
+    multiplies; K1 the 96 it multiplies."""
     n = src.shape[1]
-    return bound(src.numel() + g_rows * OH_ROWS, n, 2 * OH_ROWS * g_rows * n)
+    return bound(src.numel() * width // OH_ROWS + g_rows * width, n,
+                 2 * width * g_rows * n)
+
+
+def k1_bound(codes: torch.Tensor, g_rows: int) -> dict:
+    """K1's bound from its 96 columns, and bound_ms_128 from the 128 the
+    TPU kernel counts."""
+    return {**product_bound(codes, g_rows, K_COLS),
+            "bound_ms_128": product_bound(codes, g_rows)["bound_ms"]}
+
+
+def k1_kernel_only_ms(codes: torch.Tensor, compacted: torch.Tensor, thr: int,
+                      want: torch.Tensor, reps: int = 10) -> float:
+    """K1's launcher on guides compacted beforehand (compact_guides),
+    without stage1's checks and compaction, which stage1 pays on every call
+    (one wait for the device among them); its bytes must equal want's."""
+    fn = _build.stage1_library().ff_stage1_launch
+
+    def call():
+        return launch(stage1, fn, codes, compacted, thr, check_guides=False)
+
+    max_abs_err(call().view(torch.bool), want, "K1 launcher")
+    return cuda_ms(call, reps)
 
 
 def prebuilt_onehot(src: torch.Tensor, onehot_T) -> torch.Tensor:
-    """(N_pad, 128) int8 one-hot of src's columns, built slab by slab before
-    any library call is timed; N_pad rounds N up to 32 with zero rows, as
-    torch._int_mm on the card wants."""
+    """(N_pad, width) int8 one-hot of src's columns (width 128, or 96 for
+    K1's compact layout), built slab by slab before any library call is
+    timed; N_pad rounds N up to 32 with zero rows, as torch._int_mm on the
+    card wants."""
     n = src.shape[1]
-    oh = torch.zeros((-(-n // 32) * 32, OH_ROWS), dtype=torch.int8, device=src.device)
+    width = onehot_T(src[:, :1].t()).shape[1]
+    oh = torch.zeros((-(-n // 32) * 32, width), dtype=torch.int8, device=src.device)
     for lo in range(0, n, SLAB):
         part = onehot_T(src[:, lo:lo + SLAB].t())
         oh[lo:lo + part.shape[0]] = part
@@ -155,7 +196,7 @@ def prebuilt_onehot(src: torch.Tensor, onehot_T) -> torch.Tensor:
 def library_ms(oh: torch.Tensor, guides: torch.Tensor, epilogue, want: torch.Tensor,
                reps: int = 3) -> float:
     """One library call of the same function: torch._int_mm of the
-    pre-built one-hot by the (128, G) guides, then the epilogue, in the
+    pre-built one-hot by the (width, G) guides, then the epilogue, in the
     plain version's column chunks. Its bytes must equal want's (the plain
     version's output)."""
     G = guides.shape[0]
@@ -389,23 +430,37 @@ def phase_build() -> None:
                 say("  ptxas: " + line.strip())
 
 
+def phase3_guides(picks: np.ndarray, rows, pack, L: int) -> torch.Tensor:
+    """Phase 3's (G, 128) block-layout guides on the card: rows - rows // 16
+    of picks padded to `rows`, or "512 super rows", the paired rows of a
+    1024-row block (two 1s per position, the tool's "g2")."""
+    n = 1024 if rows == "512 super rows" else rows
+    oh, _, _ = guide_onehot_matrix(picks[:n - n // 16], pack, pad_to=n)
+    gi8 = guide_block_layout(torch.from_numpy(oh).to(DEVICE), L)
+    return sv.super_rows(gi8) if rows == "512 super rows" else gi8
+
+
 def phase_kernel_vs_plain() -> int:
-    """stage1 == stage1_reference on the card; returns the largest error."""
+    """stage1 == stage1_reference on the card for all six enzymes, every
+    PHASE3_ROWS and every thr from 1 to the active positions, on a ragged
+    width with a PAD_CODE tail; returns the largest error."""
     rng = np.random.default_rng(5)
     genome = rng.integers(0, 4, size=300_000, dtype=np.int8)
     fa = os.path.join(WORK, "small.fa")
     write_fasta(fa, "chrK", genome)
     n_cmp, err = 0, 0
+    launches = stage1.launches
     for enzyme in ENZYMES:
         db_path = os.path.join(WORK, "small_%s.db" % enzyme)
         cli.run(["index", "--reference", fa, "--database", db_path,
                  "--enzyme", enzyme])
         db = cli.load_database(db_path)
         n, L = db.num_targets, db.pack.total_scan_length
+        n_act = len(db.pack.comparison_mask_positions())
         scanner = DeviceScanner(db, DEVICE)
-        # ragged width (not a multiple of the 256-thread block) with 1001
-        # PAD_CODE columns after the real targets
-        extra = 1001 + (1 if (n + 1001) % 256 == 0 else 0)
+        # ragged width (not a multiple of the kernel's 64-target warp tile)
+        # with 1001 PAD_CODE columns after the real targets
+        extra = 1001 + (1 if (n + 1001) % 64 == 0 else 0)
         codes = torch.cat([scanner.codes[:, :n],
                            torch.full((32, extra), PAD_CODE, dtype=torch.int8,
                                       device=DEVICE)], dim=1).contiguous()
@@ -413,26 +468,28 @@ def phase_kernel_vs_plain() -> int:
         for j in range(picks.shape[0]):  # 0..6 random substitutions
             for pos in rng.integers(0, L, size=int(rng.integers(0, 7))):
                 picks[j] ^= np.uint64(int(rng.integers(1, 4))) << np.uint64(2 * int(pos))
-        hits_seen = 0
-        for G, n_real in ((128, 100), (2048, 2000)):
-            oh, _, _ = guide_onehot_matrix(picks[:n_real], db.pack, pad_to=G)
-            gi8 = guide_block_layout(torch.from_numpy(oh).to(DEVICE), L)
-            n_act = len(db.pack.comparison_mask_positions())
-            for mm in range(6):
-                thr = max(n_act - mm, 1)
+        for rows in PHASE3_ROWS:
+            gi8 = phase3_guides(picks, rows, db.pack, L)
+            sums = []
+            for thr in range(1, n_act + 1):
                 got = stage1(codes, gi8, thr)
                 want = stage1_reference(codes, gi8, thr)
-                err = max(err, max_abs_err(got, want, "stage1 %s G=%d mm=%d"
-                                           % (enzyme, G, mm)))
+                err = max(err, max_abs_err(got, want, "stage1 %s G=%s thr=%d"
+                                           % (enzyme, rows, thr)))
                 if bool(got[n:].any()):
                     raise AssertionError("a padding column hit (%s)" % enzyme)
-                hits_seen += int(got.sum())
+                sums.append(int(got.sum()))
                 n_cmp += 1
-        if hits_seen == 0:
-            raise AssertionError("no stage-1 hits for %s: vacuous compare" % enzyme)
-        say("  %s: N=%d (L=%d), G=128/2048, mm 0..5: kernel == plain, %d hit "
-            "bytes in all" % (enzyme, codes.shape[1], L, hits_seen))
-    say("phase 3 kernel vs plain: %d bitwise-equal compares" % n_cmp)
+            if not any(0 < h < n for h in sums):
+                raise AssertionError("%s, G=%s: no thr at which some but not "
+                                     "all targets hit (%s)" % (enzyme, rows, sums))
+        say("  %s: N=%d (L=%d), G=%s, thr 1..%d: kernel == plain"
+            % (enzyme, codes.shape[1], L, "/".join(map(str, PHASE3_ROWS)), n_act))
+    if stage1.launches - launches != n_cmp:
+        raise AssertionError("%d stage-1 launches for %d compares"
+                             % (stage1.launches - launches, n_cmp))
+    say("phase 3 kernel vs plain: %d bitwise-equal compares, one launch each"
+        % n_cmp)
     return err
 
 
@@ -455,6 +512,23 @@ def phase_byte_identity() -> None:
     r = byte_check(db_path, fasta, "g20_mm4_2048", ("--maxMismatch", "4"))
     if guide_block_rows(r["guides"]) != 2048 or r["guides"] > 2048:
         raise AssertionError("%d guides are not one 2048-row block" % r["guides"])
+    # --maxMismatch = the active positions on phase 3's 300 kb databases: the
+    # scan skips stage 1 and recounts every real column on the card, so a
+    # target that matches the guide at no active position is still reported
+    for enzyme in ("spcas9ngg", "cpf1"):
+        small = os.path.join(WORK, "small_%s.db" % enzyme)
+        sdb = cli.load_database(small)
+        fasta = os.path.join(WORK, "small_%s_guide.fa" % enzyme)
+        write_guides(fasta, sdb, sdb.targets[sdb.num_targets // 2:][:1])
+        n_act = len(sdb.pack.comparison_mask_positions())
+        launches = stage1.launches
+        r = byte_check(small, fasta, "small_%s_mm%d" % (enzyme, n_act),
+                       ("--maxMismatch", str(n_act), "--maximumOffTargets", "1000000"))
+        if r["guides"] != 1 or r["overflowed_guides"] or stage1.launches != launches:
+            raise AssertionError("%s at mm=%d: %d guides, %d overflowed, %d "
+                                 "stage-1 launches (want 1, 0, 0)"
+                                 % (enzyme, n_act, r["guides"], r["overflowed_guides"],
+                                    stage1.launches - launches))
 
 
 def phase_main_path() -> dict:
@@ -513,7 +587,7 @@ def phase_main_path() -> dict:
     # main path's launch), then 1024 rows of it
     thr = max(len(db.pack.comparison_mask_positions()) - 4, 1)
     L = db.pack.total_scan_length
-    timed, blocks, err = {}, {}, 0
+    timed, blocks, err, nums = {}, {}, 0, {}
     for g_rows, g in ((rows, scanned), (1024, scanned[:1024])):
         oh, _, _ = guide_onehot_matrix(g, db.pack, pad_to=g_rows)
         gi8 = guide_block_layout(torch.from_numpy(oh).to(DEVICE), L)
@@ -527,25 +601,29 @@ def phase_main_path() -> dict:
         k1 = cuda_ms(lambda: stage1(scanner.codes, gi8, thr), 10)
         k2 = cuda_ms(lambda: stage1(scanner.codes, gi8, thr), 10)
         p2 = cuda_ms(lambda: stage1_reference(scanner.codes, gi8, thr), 3)
-        timed[g_rows] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        bare = k1_kernel_only_ms(scanner.codes, compact_guides(gi8), thr, ref)
+        timed[g_rows] = ((k1 + k2) / 2, (p1 + p2) / 2, bare)
         say("  stage1 at (32, %d) x (%d, 128)%s: kernel %.3f ms (%.3f, %.3f), "
-            "plain %.3f ms (%.3f, %.3f), %d hit bytes, bitwise equal"
+            "launcher alone %.3f ms, plain %.3f ms (%.3f, %.3f), %d hit bytes, "
+            "bitwise equal"
             % (scanner.codes.shape[1], g_rows,
                " [main path]" if g_rows == rows else "", timed[g_rows][0], k1,
-               k2, timed[g_rows][1], p1, p2, int(got.sum())))
-    k_ms, p_ms = timed[rows]
-    gi8, ref = blocks.pop(rows)
-    del blocks
-    lib = library_ms(prebuilt_onehot(scanner.codes, codes_onehot), gi8,
-                     lambda m: m.amax(dim=1) >= thr, ref)
-    b = product_bound(scanner.codes, rows)
-    say("  stage1 main path: bound %.3f ms (%s), library call %.3f ms"
-        % (b["bound_ms"], b["bound_by"], lib))
+               k2, bare, timed[g_rows][1], p1, p2, int(got.sum())))
+    oh = prebuilt_onehot(scanner.codes, codes_onehot_compact)
+    for g_rows, (gi8, ref) in blocks.items():
+        lib = library_ms(oh, compact_guides(gi8), lambda m: m.amax(dim=1) >= thr, ref)
+        b = k1_bound(scanner.codes, g_rows)
+        nums[g_rows] = {"ms": timed[g_rows][0], "plain_ms": timed[g_rows][1],
+                        **b, "library_ms": lib, "kernel_only_ms": timed[g_rows][2]}
+        say("  stage1 at %d rows: bound %.3f ms (%s; %.3f ms over 128 "
+            "columns), library call %.3f ms"
+            % (g_rows, b["bound_ms"], b["bound_by"], b["bound_ms_128"], lib))
+    del oh, blocks
     return {"name": "stage1", "route": "cuda",
             "source": "flashfry_tpu_torch/csrc/stage1.cu",
             "replaces": STAGE1_TPU, "launches": launches,
-            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **b,
-            "library_ms": lib}
+            "max_abs_err": err, **nums.pop(rows),
+            "variants": {"rows_%d" % r: v for r, v in nums.items()}}
 
 
 def phase_variants():
@@ -584,6 +662,11 @@ def phase_variants():
                 b = bound(n, n)
                 lib = cuda_ms(lambda: v.src[:1].clone(), 10)
                 max_abs_err(v.src[:1].clone(), v.plain(), "library call")
+            elif v.layout == "compact":
+                b = {**k1_bound(v.src, v.rows.shape[0]),
+                     "kernel_only_ms": k1_kernel_only_ms(v.src, v.rows, inp.thr,
+                                                         v.plain())}
+                lib = library_ms(oh, v.rows, v.epilogue, v.plain())
             else:
                 b = product_bound(v.src, v.rows.shape[0])
                 lib = library_ms(oh, v.rows, v.epilogue, v.plain())
@@ -710,7 +793,8 @@ def main() -> int:
     kernel["max_abs_err"] = max(kernel["max_abs_err"], err,
                                 timed["0"]["max_abs_err"], timed["g2"]["max_abs_err"])
     # K1 at the tool's shape: its 1024 guide rows and 512 super rows
-    kernel["variants"] = {k: {f: timed[k][f] for f in TIMED_FIELDS} for k in ("0", "g2")}
+    kernel["variants"].update(
+        {k: {f: timed[k][f] for f in K1_FIELDS} for k in ("0", "g2")})
     say("total %.1fs" % (time.perf_counter() - t0))
     print(json.dumps({"kernels": [kernel] + variant_kernels}))
     print(json.dumps({"ok": True, "device": device}), flush=True)

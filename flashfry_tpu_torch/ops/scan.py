@@ -7,7 +7,8 @@ block is scanned in three steps:
 
   1. stage 1 (ops.scan_kernel.stage1, the CUDA kernel on a card): one launch
      over the whole resident array gives a hit byte per target;
-  2. the hit columns, from torch.nonzero, ascending;
+  2. the hit columns, from torch.nonzero, ascending (every real column,
+     without stage 1, when max_mismatch >= the active positions);
   3. stage 2, per batch of at most COL_BATCH hit columns: gather their codes,
      recount exact mismatches with an int8 one-hot product against the
      guides, keep mm <= max_mismatch, and emit (target, guide, mm) in
@@ -276,8 +277,13 @@ class DeviceScanner:
         dev = self.device
         guide_i8 = guide_block_layout(torch.from_numpy(guide_oh).to(dev), self.L)
         n_act = torch.from_numpy(n_active).to(dev, torch.int32)
-        thr = max(self.n_act - max_mismatch, 1)
-        cols = torch.nonzero(stage1(self.codes, guide_i8, thr)).squeeze(1)
+        thr = self.n_act - max_mismatch
+        if thr <= 0:
+            # every real target is within max_mismatch of every guide, even
+            # one that matches no active position, which stage 1 cannot pass
+            cols = torch.arange(self.n, device=dev)
+        else:
+            cols = torch.nonzero(stage1(self.codes, guide_i8, thr)).squeeze(1)
         for lo in range(0, cols.shape[0], COL_BATCH):
             c = cols[lo:lo + COL_BATCH]
             mm = recount(self.codes, c, guide_i8, n_act)      # (n, G)

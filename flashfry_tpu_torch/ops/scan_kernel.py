@@ -3,13 +3,15 @@
 Counterpart of flashfry_tpu/ops/scan_kernel.py (`stage1_pallas`). For a
 guide block and every target column of the resident (32, N) int8 plane
 codes it answers "does any guide come within max_mismatch of this target",
-as `max_g <onehot(g), onehot(t)> >= thr` with `thr = max(n_active -
-max_mm, 1)`.
+as `max_g <onehot(g), onehot(t)> >= thr` with `thr = n_active - max_mm`,
+which must be at least 1 (with max_mm >= n_active every target is within
+reach, and the scan skips stage 1).
 
 `stage1` is the wrapper: a CPU tensor goes to the plain PyTorch version
-`stage1_reference`; a CUDA tensor launches the hand-written kernel in
-`csrc/stage1.cu` (its header says what bounds it on Hopper and how the
-design answers that) or raises. `stage1.launches` counts kernel launches.
+`stage1_reference`; a CUDA tensor launches the hand-written int8
+tensor-core kernel in `csrc/stage1.cu` (its header says what bounds it on
+Hopper and how the design answers that) on the guides `compact_guides`
+makes, or raises. `stage1.launches` counts kernel launches.
 `matches_reference`, `check_inputs` and `launch` serve the stage-1
 variants of ops/stage1_variants.py as well.
 """
@@ -17,6 +19,7 @@ variants of ops/stage1_variants.py as well.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +27,11 @@ import torch.nn.functional as F
 CODE_ROWS = 32          # plane-major code rows (L <= 24, padded to 32)
 OH_ROWS = 4 * CODE_ROWS  # one-hot width in block layout (column b*32+i)
 MAX_GUIDE_ROWS = 2048   # largest guide block the kernel takes
+K_POSITIONS = 24        # positions the kernel multiplies (every enzyme's L <= 24)
+K_COLS = 4 * K_POSITIONS  # its K: compacted guide columns
+M_TILE = 16             # guide rows per tensor-core m-tile
+# column 4i+b of the compacted guides is block column b*32+i
+_COMPACT_COLS = [b * CODE_ROWS + i for i in range(K_POSITIONS) for b in range(4)]
 
 # stage1_reference's (targets x guides) int32 scratch stays under this many
 # elements per chunk (256 MB)
@@ -45,6 +53,15 @@ def codes_onehot(codes_T: torch.Tensor) -> torch.Tensor:
     return torch.cat([codes_T == b for b in range(4)], dim=1).to(torch.int8)
 
 
+def codes_onehot_compact(codes_T: torch.Tensor) -> torch.Tensor:
+    """(T, 32) int8 codes -> (T, 96) int8, column 4i+b = (code_i == b) for
+    i < K_POSITIONS: the target operand csrc/stage1.cu builds in registers,
+    whose product with compact_guides' rows is the block-layout product."""
+    c = codes_T[:, :K_POSITIONS]
+    bases = torch.arange(4, dtype=c.dtype, device=c.device)
+    return (c.unsqueeze(2) == bases).reshape(c.shape[0], K_COLS).to(torch.int8)
+
+
 def matches_reference(src: torch.Tensor, guide_i8: torch.Tensor, onehot_T,
                       epilogue, dtype: torch.dtype) -> torch.Tensor:
     """(N,) dtype: epilogue of the (T, G) int32 match counts
@@ -55,15 +72,17 @@ def matches_reference(src: torch.Tensor, guide_i8: torch.Tensor, onehot_T,
     G = guide_i8.shape[0]
     out = torch.empty(n, dtype=dtype, device=src.device)
     chunk = max(32, (_REF_ELEMS // max(G, 1)) // 32 * 32)
-    guides_T = guide_i8.t()                                   # (128, G)
+    # _int_mm on a card wants a width that is a multiple of 8: pad with
+    # all-zero guides, whose counts are cut off before the epilogue
+    guides_T = F.pad(guide_i8, (0, 0, 0, -G % 8)).t()        # (128, G8)
     for lo in range(0, n, chunk):
         oh = onehot_T(src[:, lo:lo + chunk].t())              # (T, 128)
         t = oh.shape[0]
         pad = -t % 32  # _int_mm wants > 16 rows: pad with all-zero rows
         if pad:
             oh = F.pad(oh, (0, 0, 0, pad))
-        matches = torch._int_mm(oh.contiguous(), guides_T)    # (T, G) int32
-        out[lo:lo + t] = epilogue(matches[:t])
+        matches = torch._int_mm(oh.contiguous(), guides_T)    # (T, G8) int32
+        out[lo:lo + t] = epilogue(matches[:t, :G])
     return out
 
 
@@ -127,18 +146,49 @@ def launch(wrapper, fn, src: torch.Tensor, guide_i8: torch.Tensor, thr: int,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _compact_index(device: torch.device) -> torch.Tensor:
+    """_COMPACT_COLS as an index tensor on device, built once per device."""
+    return torch.tensor(_COMPACT_COLS, device=device)
+
+
+def compact_guides(guide_i8: torch.Tensor) -> torch.Tensor:
+    """(G, 128) block-layout guides -> (G16, 96) int8, contiguous, on the
+    same device: column 4i+b = block column b*32+i for i < K_POSITIONS,
+    rows zero-padded up to G16, the next multiple of M_TILE. This is the A
+    operand of csrc/stage1.cu: block columns i >= K_POSITIONS must be zero
+    (stage1 checks), so the product of the compacted guides with the
+    interleaved target one-hot (codes_onehot_compact) equals the
+    block-layout product."""
+    G = guide_i8.shape[0]
+    cols = guide_i8.index_select(1, _compact_index(guide_i8.device))
+    return F.pad(cols, (0, 0, 0, -G % M_TILE)).contiguous()
+
+
 def stage1(codes: torch.Tensor, guide_i8: torch.Tensor, thr: int) -> torch.Tensor:
-    """(32, N) int8 codes, (G, 128) int8 0/1 guides -> (N,) bool hit bytes.
+    """(32, N) int8 codes, (G, 128) int8 0/1 guides -> (N,) bool hit bytes,
+    for thr >= 1.
 
     CPU tensors run stage1_reference. CUDA tensors launch the kernel of
     csrc/stage1.cu on the current stream (and count it in
-    stage1.launches); anything the kernel does not take raises."""
+    stage1.launches); anything the kernel does not take raises, on either
+    device: thr < 1, a guide byte other than 0 and 1, and a non-zero guide
+    column at a position i >= K_POSITIONS. Both guide checks are one
+    reduction with one wait for the device: the compacted guides hold only
+    0 and 1, and as many non-zero bytes as the whole block."""
     check_inputs(codes, guide_i8, "stage1")
+    if thr < 1:
+        raise ValueError("stage1 takes thr >= 1, got %d" % thr)
+    a = compact_guides(guide_i8)
+    bad = ((a != 0) & (a != 1)).any() | ((a != 0).sum() != (guide_i8 != 0).sum())
+    if bool(bad):
+        raise ValueError("stage1 takes 0/1 guides with bases at positions "
+                         "0..%d only" % (K_POSITIONS - 1))
     if codes.device.type == "cpu":
         return stage1_reference(codes, guide_i8, thr)
     from ._build import stage1_library
-    return launch(stage1, stage1_library().ff_stage1_launch, codes, guide_i8,
-                  thr).view(torch.bool)
+    return launch(stage1, stage1_library().ff_stage1_launch, codes, a, thr,
+                  check_guides=False).view(torch.bool)
 
 
 stage1.launches = 0

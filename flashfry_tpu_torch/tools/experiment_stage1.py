@@ -47,7 +47,8 @@ from ..device import resolve_device
 from ..ops import stage1_variants as sv
 from ..ops.scan import (DEFAULT_CAP, guide_onehot_matrix, plane_codes,
                         split_words)
-from ..ops.scan_kernel import (codes_onehot, guide_block_layout, stage1,
+from ..ops.scan_kernel import (codes_onehot, codes_onehot_compact,
+                               compact_guides, guide_block_layout, stage1,
                                stage1_reference)
 from ..standards import Cas9NGGParameterPack
 
@@ -103,9 +104,10 @@ def make_inputs(device, chunk: int = CHUNK, G: int = GUIDES) -> Inputs:
 
 
 # the (T, 128) int8 one-hot of T target columns that a kernel of each
-# layout computes from its source's columns; the expanded one-hot is its own
-ONEHOT_T = {"block": codes_onehot, "interleaved": sv.interleaved_onehot,
-            "expanded": lambda s: s}
+# layout computes from its source's columns (K1's "compact": (T, 96), the
+# positions it multiplies); the expanded one-hot is its own
+ONEHOT_T = {"block": codes_onehot, "compact": codes_onehot_compact,
+            "interleaved": sv.interleaved_onehot, "expanded": lambda s: s}
 
 
 @dataclass
@@ -117,7 +119,8 @@ class Variant:
     work: int                            # target-guide comparisons
     # the same function as one int8 product: the (32 or 128, N) tensor the
     # kernel reads, the ONEHOT_T layout of its columns, the (g, 128) guide
-    # rows it reads, and the epilogue on the (T, g) int32 counts. e_copy
+    # rows it reads ((g16, 96) compacted for K1), and the epilogue on the
+    # (T, g) int32 counts. e_copy
     # takes no product: its output is row 0 of src (rows, epilogue None)
     src: torch.Tensor
     layout: str
@@ -156,12 +159,12 @@ def variants(inp: Inputs, keys: List[str]) -> List[Variant]:
         if k == "0":
             v = Variant(k, "v0 stage1 (K1)", lambda: stage1(codes, blk, thr),
                         lambda: stage1_reference(codes, blk, thr), work,
-                        codes, "block", blk, hit)
+                        codes, "compact", compact_guides(blk), hit)
         elif k == "g2":
             v = Variant(k, "group2 (%d super rows)" % sup.shape[0],
                         lambda: stage1(codes, sup, thr),
                         lambda: stage1_reference(codes, sup, thr), work,
-                        codes, "block", sup, hit)
+                        codes, "compact", compact_guides(sup), hit)
         elif k == "g2bf":
             v = Variant(k, "group2 + bf16 epilogue (%d super rows)" % sup.shape[0],
                         lambda: sv.v6_bf16out(codes, sup, thr),

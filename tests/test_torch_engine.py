@@ -124,6 +124,48 @@ def test_discover_stats_and_guides_equal_host(repeat_db):
         [[ot.sequence for ot in g.off_targets] for g in b]
 
 
+@pytest.mark.parametrize("over", [0, 1], ids=["mm=active", "mm=active+1"])
+@pytest.mark.parametrize("enzyme", ["spcas9ngg", "cpf1"])
+def test_discover_at_max_mismatch_beyond_active_positions(tmp_path, enzyme, over):
+    """With --maxMismatch >= the active positions every target is an
+    off-target of every guide, even one that matches the guide at no active
+    position (planted here): the torch backend, which cannot pass such a
+    target through stage 1, must still report it, as both numpy backends
+    do. One guide, so no other guide of its block lets the target through."""
+    pack = Cas9NGGParameterPack if enzyme == "spcas9ngg" else Cpf1ParameterPack
+    active = pack.comparison_mask_positions()
+    guide = np.asarray(list(random_genome(pack.total_scan_length, seed=60)))
+    if pack.five_prime_pam:
+        guide[:4] = list("TTTA")
+    else:
+        guide[-3:] = list("AGG")
+    anti = guide.copy()  # a different base at every active position
+    anti[list(active)] = ["ACGT"[("ACGT".index(b) + 1) % 4] for b in guide[list(active)]]
+    genome = "".join([random_genome(6000, seed=61), "".join(guide), "TTTT",
+                      "".join(anti), random_genome(100, seed=62)])
+    fa, guides_fa = tmp_path / "genome.fa", tmp_path / "guide.fa"
+    fa.write_text(">chrT\n%s\n" % genome)
+    guides_fa.write_text(">g\n%s\n" % "".join(guide))
+    db_path = str(tmp_path / "db")
+    cli.run(["index", "--reference", str(fa), "--database", db_path,
+             "--enzyme", enzyme])
+    db = cli.load_database(db_path)
+    n_act = len(active)
+    mm = db.bit_encoding().mismatches_cross(db.targets, np.asarray(
+        find_target_sites(iter([("g", "".join(guide))]), pack).sequences))
+    assert mm.shape[1] == 1 and (mm[:, 0] == n_act).sum() >= 1  # anti's target
+    base = ["discover", "--fasta", str(guides_fa), "--database", db_path,
+            "--positionOutput", "--maxMismatch", str(n_act + over),
+            "--maximumOffTargets", "1000000"]
+    outs = [str(tmp_path / s) for s in ("torch", "port_numpy", "numpy")]
+    report = cli.run(base + ["--output", outs[0], "--device", "cpu"])
+    cli.run(base + ["--output", outs[1], "--backend", "numpy"])
+    assert jax_cli.main(base + ["--output", outs[2], "--backend", "numpy"]) == 0
+    assert report["guides"] == 1 and report["overflowed_guides"] == 0
+    assert filecmp.cmp(outs[1], outs[2], shallow=False)
+    assert filecmp.cmp(outs[0], outs[2], shallow=False)
+
+
 def test_scanner_from_another_database_raises_value_error():
     genome = random_genome(20000, seed=8)
     db = build_db(genome, Cas9NGGParameterPack)

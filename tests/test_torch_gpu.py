@@ -44,26 +44,36 @@ def build_db(seq, pack):
     return build_database_from_sites(find_target_sites(iter([("chrT", seq)]), pack), 7)
 
 
-def test_stage1_kernel_equals_plain(cuda):
+@pytest.mark.parametrize("G", [1, 15, 16, 17, 100, 128, "512 super rows", 2048])
+def test_stage1_kernel_equals_plain(cuda, G):
+    """The tensor-core kernel on a ragged width (not a multiple of its
+    64-target warp tile) with a PAD_CODE tail, at guide rows that are and
+    are not multiples of its 16-row m-tile, with guide padding rows, and on
+    super rows (two 1s per position), for every thr from 1 to 20: bitwise
+    equal to the plain version, one launch per call."""
     rng = np.random.default_rng(3)
-    n_real, n = 150_001, 153_333        # ragged width, PAD_CODE tail
+    n_real, n = 150_001, 153_333
     targets = rng.integers(0, 1 << 46, size=n_real, dtype=np.uint64)
     codes = torch.from_numpy(plane_codes(targets, 23, n)).to(cuda)
+    rows = 1024 if G == "512 super rows" else G
+    guides = targets[rng.integers(0, n_real, size=rows - rows // 16)].copy()
+    for j in range(guides.shape[0]):
+        for pos in rng.integers(0, 23, size=j % 7):
+            guides[j] ^= np.uint64(int(rng.integers(1, 4))) << np.uint64(2 * int(pos))
+    oh, _, _ = guide_onehot_matrix(guides, Cas9NGGParameterPack, pad_to=rows)
+    gi8 = tk.guide_block_layout(torch.from_numpy(oh).to(cuda), 23)
+    if G == "512 super rows":
+        gi8 = sv.super_rows(gi8)
     before = tk.stage1.launches
-    for G in (128, 2048):
-        guides = targets[rng.integers(0, n_real, size=G - 20)].copy()
-        for j in range(guides.shape[0]):
-            for pos in rng.integers(0, 23, size=j % 7):
-                guides[j] ^= np.uint64(int(rng.integers(1, 4))) << np.uint64(2 * int(pos))
-        oh, _, _ = guide_onehot_matrix(guides, Cas9NGGParameterPack, pad_to=G)
-        gi8 = tk.guide_block_layout(torch.from_numpy(oh).to(cuda), 23)
-        for mm in range(6):
-            got = tk.stage1(codes, gi8, 20 - mm)
-            want = tk.stage1_reference(codes, gi8, 20 - mm)
-            torch.cuda.synchronize()
-            assert torch.equal(got, want), (G, mm)
-            assert not bool(got[n_real:].any())
-    assert tk.stage1.launches == before + 12
+    for thr in range(1, 21):
+        got = tk.stage1(codes, gi8, thr)
+        want = tk.stage1_reference(codes, gi8, thr)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (G, thr)
+        assert not bool(got[n_real:].any())
+        if thr == 20:
+            assert bool(got.any())
+    assert tk.stage1.launches == before + 20
 
 
 def test_stage1_variant_kernels_equal_plain(cuda):
@@ -162,6 +172,42 @@ def test_scanner_and_counter_on_cuda_match_host(cuda, pack):
     for k in (3, 4, 5):
         assert pruned_comparisons_device(db, guides, k, cuda) == \
             pruned_comparisons(db, guides, k)
+
+
+@pytest.mark.parametrize("pack", [Cas9NGGParameterPack, Cpf1ParameterPack],
+                         ids=lambda p: p.name)
+def test_discover_cli_on_cuda_at_max_mismatch_of_active_positions(cuda, tmp_path, pack):
+    """--maxMismatch = the active positions on the card: the scan skips
+    stage 1 and recounts every real column, so the planted target that
+    matches the guide at no active position is reported, byte for byte as
+    the numpy CLI reports it."""
+    active = list(pack.comparison_mask_positions())
+    guide = np.asarray(list(random_genome(pack.total_scan_length, seed=60)))
+    if pack.five_prime_pam:
+        guide[:4] = list("TTTA")
+    else:
+        guide[-3:] = list("AGG")
+    anti = guide.copy()  # a different base at every active position
+    anti[active] = ["ACGT"[("ACGT".index(b) + 1) % 4] for b in guide[active]]
+    genome = "".join([random_genome(6000, seed=61), "".join(guide), "TTTT",
+                      "".join(anti), random_genome(100, seed=62)])
+    db = build_db(genome, pack)
+    sites = np.asarray(find_target_sites(iter([("g", "".join(guide))]), pack).sequences)
+    assert (db.bit_encoding().mismatches_cross(sites, db.targets) == len(active)).any()
+    db_path = str(tmp_path / "db")
+    save_database(db, db_path)
+    fasta = tmp_path / "g.fa"
+    fasta.write_text(">g\n%s\n" % "".join(guide))
+    base = ["discover", "--fasta", str(fasta), "--database", db_path,
+            "--positionOutput", "--maxMismatch", str(len(active)),
+            "--maximumOffTargets", "1000000"]
+    mine, ref = str(tmp_path / "t"), str(tmp_path / "n")
+    before = tk.stage1.launches
+    report = cli.run(base + ["--output", mine, "--device", "cuda"])
+    cli.run(base + ["--output", ref, "--backend", "numpy"])
+    assert report["guides"] == 1 and report["overflowed_guides"] == 0
+    assert tk.stage1.launches == before
+    assert filecmp.cmp(mine, ref, shallow=False) and os.path.getsize(mine)
 
 
 def test_discover_cli_on_cuda_byte_identical_to_numpy(cuda, tmp_path):

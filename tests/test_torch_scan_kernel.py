@@ -128,6 +128,66 @@ def test_stage1_wrapper_rejects_what_the_kernel_does_not_take():
             tk.stage1(c, g, 20)
 
 
+@pytest.mark.parametrize("case", ["thr=0", "thr=-3", "position 24", "position 31",
+                                  "byte 2", "byte -1"])
+def test_stage1_rejects_thr_below_one_and_bases_past_position_23(case):
+    """The kernel multiplies positions 0..23 (K = 96) of 0/1 guides and
+    takes thr >= 1; the wrapper refuses the rest on every device."""
+    codes = torch.full((32, 4096), PAD_CODE, dtype=torch.int8)
+    guides = torch.zeros((128, 128), dtype=torch.int8)
+    thr = 16
+    if case.startswith("thr"):
+        thr = int(case[4:])
+    elif case.startswith("byte"):
+        guides[5, 2 * 32 + 3] = int(case.split()[1])   # base 2 at position 3
+    else:
+        guides[5, 2 * 32 + int(case.split()[1])] = 1   # base 2 at that position
+    with pytest.raises(ValueError):
+        tk.stage1(codes, guides, thr)
+
+
+def interleaved_target_onehot(codes):
+    """(32, N) codes -> (N, 96) int8, column 4i+b = (code_i == b) for
+    i < 24: the B operand csrc/stage1.cu builds in registers."""
+    c = codes[:tk.K_POSITIONS].t()
+    bases = torch.arange(4, dtype=torch.int8)
+    return (c[:, :, None] == bases).reshape(c.shape[0], tk.K_COLS).to(torch.int8)
+
+
+@pytest.mark.parametrize("G", [1, 17, 128])
+@pytest.mark.parametrize("pack", PACKS, ids=lambda p: p.name)
+def test_compacted_product_equals_stage1_reference(pack, G):
+    """The kernel's K layout on the CPU: the int8 product of the
+    interleaved target one-hot and the (G16, 96) compacted guides gives,
+    after the max and >= thr, exactly stage1_reference's bytes, for every
+    thr from 1 to |active|; at 128 rows also on the 64 super rows (two 1s
+    per position) of the experiment tool's "g2"."""
+    codes, oh, _ = make_case(pack, seed=200 + G)
+    L = pack.total_scan_length
+    n_act = len(pack.comparison_mask_positions())
+    c = torch.from_numpy(codes)
+    gi8 = tk.guide_block_layout(torch.from_numpy(oh[:G]), L)
+    blocks = [gi8]
+    if G == 128:
+        blocks.append(torch.maximum(gi8[0::2], gi8[1::2]).contiguous())
+    x = interleaved_target_onehot(c)
+    assert torch.equal(tk.codes_onehot_compact(c.t().contiguous()), x)
+    for g in blocks:
+        a = tk.compact_guides(g)
+        g16 = -(-g.shape[0] // tk.M_TILE) * tk.M_TILE
+        assert a.dtype == torch.int8 and a.is_contiguous()
+        assert a.shape == (g16, tk.K_COLS) and not bool(a[g.shape[0]:].any())
+        assert int(a.sum()) == int(g.sum())
+        counts = torch._int_mm(x, a.t().contiguous())          # (N, G16)
+        n_hits = []
+        for thr in range(1, n_act + 1):
+            want = tk.stage1_reference(c, g, thr)
+            assert torch.equal(counts.amax(dim=1) >= thr, want), (g.shape, thr)
+            assert torch.equal(tk.stage1(c, g, thr), want)
+            n_hits.append(int(want.sum()))
+        assert n_hits[0] > n_hits[-1] > 0, n_hits
+
+
 def test_stage1_on_cpu_runs_the_plain_version_and_launches_nothing():
     pack = Cas9NGGParameterPack
     codes, oh, _ = make_case(pack, seed=7)
