@@ -34,7 +34,17 @@ each of which fails the run on any mismatch:
      one-hot (launches of every variant kernel > 0); then each kernel and
      mode (K1 and its 512 super rows, X1, X2, X3, X4 and its 512 super rows,
      X5 at two tiles, X6 in three modes) bitwise against its plain version
-     and timed beside it, X6 dot at 512 guides, and X6 copy's bytes/s.
+     and timed beside it, X6 dot at 512 guides, and X6 copy's bytes/s;
+  7. scoring: (a) the descriptor kernel K5 (`scoring/device.py`,
+     csrc/descriptors.cu) bitwise against its plain version on off-targets
+     with 0..9 planted mismatches, N of 1, 1000, 65,537 and 2^24, a 20-mer
+     and a 19-mer enzyme, 1 and 1059 guides, one counted launch per call,
+     timed at 2^24 beside the plain version and its bound; (b) the port's
+     `score` CLI on phase 5's own discover output: five metrics on the card
+     (`--backend device`), then `--backend numpy` and `--backend native`,
+     the three files byte-identical, K5 launches > 0 on the first and 0 on
+     the others; eleven metrics with a seeded BED, device against numpy;
+     and K5 against plain at the shape that run gave it.
 
 Beside each kernel's time the script computes its bound, the larger of its
 int8 operations (the one-hot product over the columns it needs: 2 x 96 x G
@@ -47,7 +57,12 @@ pre-built (N, 128) one-hot ((N, 96) for K1; built before timing) by the
 guides, then the epilogue, in the plain version's column chunks; for X6
 copy, whose output is one-hot row 0, a clone of that row. For K1 it also
 times the launcher alone on pre-compacted guides (kernel_only_ms), so that
-the wrapper's own cost per call shows.
+the wrapper's own cost per call shows. X6 copy is the tool's read-rate
+probe: its bound is of the N bytes its output needs, while the kernel, like
+the TPU kernel, reads the whole one-hot by design (its entry says so and
+carries the bytes/s). K5's bound is its bytes (12 read and 8 written per
+off-target, and the guide codes); no single PyTorch call computes it, so
+its library_ms is null.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
@@ -87,6 +102,9 @@ from flashfry_tpu_torch.ops import stage1_variants as sv  # noqa: E402
 from flashfry_tpu_torch.ops.scan_kernel import (  # noqa: E402
     _REF_ELEMS, K_COLS, OH_ROWS, codes_onehot_compact, compact_guides,
     guide_block_layout, launch, stage1, stage1_reference)
+from flashfry_tpu_torch.scoring.device import (  # noqa: E402
+    descriptors, descriptors_plain)
+from flashfry_tpu_torch.standards import name_to_parameter_pack  # noqa: E402
 from flashfry_tpu_torch.tools import experiment_stage1 as tool  # noqa: E402
 from flashfry_tpu_torch.tools.experiment_stage1 import max_abs_err  # noqa: E402
 
@@ -100,7 +118,7 @@ STAGE1_TPU = "flashfry_tpu/ops/scan_kernel.py:79"
 # discover blocks, and the tool's paired rows
 PHASE3_ROWS = (1, 15, 16, 17, 100, 128, "512 super rows", 2048)
 VARIANT_CHUNK, VARIANT_GUIDES = tool.CHUNK, tool.GUIDES  # the tool's own size
-KERNEL_LIBS = ("stage1", "stage1_variants")
+KERNEL_LIBS = ("stage1", "stage1_variants", "descriptors")
 VARIANTS_SRC = "flashfry_tpu_torch/csrc/stage1_variants.cu"
 # variant kernel -> (the TPU kernel it replaces, the tool's keys it runs;
 # the first key's times are the kernel's in the kernels line)
@@ -121,6 +139,15 @@ ORACLE_SLICE = 2_000_000  # targets cross-checked against the numpy oracle
 # TPU kernel counts it) and kernel_only_ms (the launcher on pre-compacted
 # guides, without the wrapper's checks and compaction)
 TIMED_FIELDS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+# phase 7: the descriptor kernel's sizes, enzymes (L = 23 and 22) and guide
+# counts, and the score CLI's metric sets (bench.py's five and all eleven)
+DESC_TPU = "flashfry_tpu/scoring/device.py:38"
+DESC_N = (1, 1000, 65_537, 1 << 24)
+DESC_ENZYMES = ("spcas9ngg", "spcas919")
+DESC_GUIDES = (1, 1059)
+FIVE_METRICS = "doench2016cfd,hsu2013,jostandsantos,minot,dangerous"
+ELEVEN_METRICS = FIVE_METRICS + (",doench2014ontarget,moreno2015,bedannotator,"
+                                 "reciprocalofftargets,folding,rank")
 K1_FIELDS = TIMED_FIELDS + ("bound_ms_128", "kernel_only_ms")
 
 
@@ -421,6 +448,7 @@ def phase_build() -> None:
                  [(n, ex.submit(timed_build, n)) for n in KERNEL_LIBS]}
     _build.stage1_library()
     _build.stage1_variants_library()
+    _build.descriptors_library()
     say("phase 2 build: %d libraries in %.2fs" % (len(built), time.perf_counter() - t))
     for name, (path, secs) in built.items():
         say("  %s in %.2fs (%s)" % (os.path.relpath(path, ROOT), secs,
@@ -700,8 +728,216 @@ def phase_variants():
              "max_abs_err": max(timed[k]["max_abs_err"] for k in ks)}
         if len(ks) > 1:
             e["variants"] = {k: {f: timed[k][f] for f in TIMED_FIELDS} for k in ks}
+        if "e_copy" in ks:
+            # the tool's read-rate probe: its output needs only one-hot row 0,
+            # and the kernel, like the TPU kernel, reads every row by design
+            e["variants"]["e_copy"].update(
+                role="read-rate probe", bytes_read=oh.numel(), bytes_written=n,
+                bytes_per_s=copy_bytes,
+                bound_note="bound_ms is of the %d bytes the output needs (row 0 "
+                           "read, N written); the kernel reads all %d bytes of "
+                           "the one-hot by design, as the TPU kernel did"
+                           % (2 * n, oh.numel()))
         entries.append(e)
     return entries, timed
+
+
+def planted_off_targets(n: int, g: int, enzyme: str, seed: int, device=None):
+    """n off-targets of g random guides of `enzyme`, made on `device` from a
+    seed and grouped by guide, as the score batch gives them: each is its
+    guide with k substitutions (k uniform in 0..9) at distinct random active
+    positions and a random PAM dinucleotide, so the mismatch counts 0, 1, 6,
+    7 and beyond and the overflow bit all occur.
+    Returns the descriptor pass's inputs (lo, hi, gi int32 (n,), gcodes (g,
+    L) int8), the active position count, and k."""
+    device = torch.device(device or DEVICE)
+    pack = name_to_parameter_pack(enzyme)
+    L, act_n = pack.total_scan_length, len(pack.comparison_mask_positions())
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randint(lo, hi, shape, dtype=torch.int64):
+        return torch.randint(lo, hi, shape, generator=gen, device=device, dtype=dtype)
+
+    shifts = 2 * (L - 1 - torch.arange(L, device=device))
+    glongs = randint(0, 1 << (2 * L), (g,))
+    gcodes = ((glongs[:, None] >> shifts) & 3).to(torch.int8).contiguous()
+    gi = randint(0, g, (n,), torch.int32).sort().values
+    k = randint(0, 10, (n,))
+    seq = torch.empty(n, dtype=torch.int64, device=device)
+    for a in range(0, n, 1 << 21):
+        b = min(n, a + (1 << 21))
+        # the first k positions of a random order of the active positions
+        order = torch.rand((b - a, act_n), generator=gen, device=device).argsort(dim=1)
+        first_k = torch.arange(act_n, device=device)[None, :] < k[a:b, None]
+        planted = torch.zeros_like(first_k).scatter_(1, order, first_k)
+        flip = (randint(1, 4, (b - a, act_n)) * planted) << shifts[:act_n]
+        seq[a:b] = glongs[gi[a:b].long()] ^ flip.sum(dim=1)
+    seq = (seq & ~15) | randint(0, 16, (n,))
+    words = seq.view(torch.int32).view(n, 2)  # little-endian: low word first
+    return (words[:, 0].contiguous(), words[:, 1].contiguous(), gi, gcodes,
+            act_n, k)
+
+
+def descriptors_equal(inputs, what: str) -> int:
+    """One counted launch of K5 on `inputs` (planted_off_targets' result):
+    both words equal the plain version's, and the count and overflow bits
+    say what was planted. Returns the largest error (0)."""
+    lo, hi, gi, gcodes, act_n, k = inputs
+    launches = descriptors.launches
+    got = descriptors(lo, hi, gi, gcodes, act_n)
+    torch.cuda.synchronize()
+    want = descriptors_plain(lo, hi, gi, gcodes, act_n)
+    err = 0
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError("%s w%d: kernel %s %s != plain %s %s"
+                                 % (what, j, tuple(a.shape), a.dtype,
+                                    tuple(b.shape), b.dtype))
+        err = max(err, int((a.long() - b.long()).abs().max()) if a.numel() else 0)
+        if err:
+            raise AssertionError("%s w%d: kernel != plain in %d of %d words"
+                                 % (what, j, int((a != b).sum()), a.numel()))
+    k = k.to(torch.int32)
+    if not (torch.equal((got[0] >> 27) & 7, k.clamp(max=7))
+            and torch.equal((got[0] >> 30) & 1, (k > 6).to(torch.int32))
+            and torch.equal((got[1] >> 27) & 15, lo & 15)):
+        raise AssertionError("%s: the words do not say what was planted" % what)
+    if descriptors.launches - launches != (DEVICE == "cuda"):
+        raise AssertionError("%s: %d launches for one call"
+                             % (what, descriptors.launches - launches))
+    return err
+
+
+def descriptors_timed(inputs) -> dict:
+    """K5 and its plain version on `inputs`, in turns (plain, kernel,
+    kernel, plain), beside the bound of its bytes: lo, hi, gi and the guide
+    codes read once, w0 and w1 written once. runs_ms holds the four runs."""
+    lo, hi, gi, gcodes, act_n, _k = inputs
+    p1 = cuda_ms(lambda: descriptors_plain(lo, hi, gi, gcodes, act_n), 3)
+    k1 = cuda_ms(lambda: descriptors(lo, hi, gi, gcodes, act_n), 20)
+    k2 = cuda_ms(lambda: descriptors(lo, hi, gi, gcodes, act_n), 20)
+    p2 = cuda_ms(lambda: descriptors_plain(lo, hi, gi, gcodes, act_n), 3)
+    n = lo.shape[0]
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            **bound(12 * n + gcodes.numel(), 8 * n), "library_ms": None,
+            "shape": "N=%d, G=%d, L=%d" % (n, gcodes.shape[0], gcodes.shape[1]),
+            "runs_ms": [p1, k1, k2, p2]}
+
+
+def phase_descriptors() -> dict:
+    """Phase 7a: K5 against its plain version at every DESC_N x
+    DESC_ENZYMES x DESC_GUIDES, then timed at the largest. Returns K5's
+    kernels-line entry without its main-path numbers."""
+    err, n_cmp, timed, ungrouped = 0, 0, None, None
+    for enzyme in DESC_ENZYMES:
+        for g in DESC_GUIDES:
+            for n in DESC_N:
+                inputs = planted_off_targets(n, g, enzyme, seed=n + g)
+                err = max(err, descriptors_equal(
+                    inputs, "descriptors %s N=%d G=%d" % (enzyme, n, g)))
+                n_cmp += 1
+                if (enzyme, g, n) == (DESC_ENZYMES[0], DESC_GUIDES[-1], DESC_N[-1]):
+                    timed = descriptors_timed(inputs)
+                    # the same rows in random order: neighbouring threads
+                    # then read different guide rows
+                    perm = torch.randperm(n, device=inputs[0].device)
+                    lo, hi, gi, gcodes, act_n, k = inputs
+                    shuffled = (lo[perm], hi[perm], gi[perm], gcodes, act_n, k[perm])
+                    descriptors_equal(shuffled, "descriptors, ungrouped")
+                    n_cmp += 1
+                    ungrouped = descriptors_timed(shuffled)
+                    del perm, lo, hi, gi, k, shuffled
+                del inputs
+        say("  %s: N=%s, G=%s: kernel == plain"
+            % (enzyme, "/".join(map(str, DESC_N)), "/".join(map(str, DESC_GUIDES))))
+    launches = descriptors.launches
+    empty = planted_off_targets(0, 1, DESC_ENZYMES[0], seed=0)
+    if descriptors(*empty[:5])[0].numel() or descriptors.launches != launches:
+        raise AssertionError("N=0 launched the descriptor kernel")
+    p1, k1, k2, p2 = timed["runs_ms"]
+    say("phase 7a descriptors: %d bitwise-equal compares, one launch each; at %s "
+        "kernel %.4f ms (%.4f, %.4f), plain %.3f ms (%.3f, %.3f), bound %.4f ms "
+        "(%s), no library call; rows in random order: kernel %.4f ms, plain "
+        "%.3f ms" % (n_cmp, timed["shape"], timed["ms"], k1, k2,
+                     timed["plain_ms"], p1, p2, timed["bound_ms"],
+                     timed["bound_by"], ungrouped["ms"], ungrouped["plain_ms"]))
+    return {"name": "descriptors", "route": "cuda",
+            "source": "flashfry_tpu_torch/csrc/descriptors.cu",
+            "replaces": DESC_TPU, "launches": 0, "max_abs_err": err, **timed,
+            "variants": {"ungrouped": ungrouped}}
+
+
+def phase_score(kernel: dict) -> None:
+    """Phase 7b: the port's score CLI on phase 5's discover output, on the
+    card and on both host backends, byte for byte; fills K5's main-path
+    launches and its numbers at the main path's shape into `kernel`."""
+    db_path = os.path.join(WORK, "g400.db")
+    base = ["score", "--input", os.path.join(WORK, "g400_mm4.out"),
+            "--database", db_path]
+    bed = os.path.join(WORK, "g400_regions.bed")
+    rng = np.random.default_rng(5)
+    starts = np.sort(rng.integers(0, MAIN_MB * 1_000_000, size=50_000))
+    widths = rng.integers(100, 5_000, size=50_000)
+    with open(bed, "w") as fh:
+        fh.write("".join("chrS\t%d\t%d\tI%d\n" % (a, a + w, j)
+                         for j, (a, w) in enumerate(zip(starts.tolist(), widths.tolist()))))
+
+    def run(tag, metrics, backend, extra=()):
+        out = os.path.join(WORK, "g400_%s.%s.scored" % (tag, backend))
+        descriptors.launches = 0
+        t = time.perf_counter()
+        report = cli.run(base + ["--output", out, "--scoringMetrics", metrics,
+                                 "--backend", backend, "--device", DEVICE, *extra])
+        wall = time.perf_counter() - t
+        launched = descriptors.launches
+        say("  score %s --backend %s: %.4fs wall (parse %.4fs, write %.4fs, models "
+            "%s); %d guides, %d off-targets, %d K5 launches"
+            % (tag, backend, wall, report["parse_s"], report["write_s"],
+               json.dumps({k: round(v, 4) for k, v in report["model_s"].items()}),
+               report["guides"], report["off_targets"], launched))
+        if (launched > 0) != (backend == "device"):
+            raise AssertionError("--backend %s launched K5 %d times" % (backend, launched))
+        return out, report, launched, wall
+
+    say("phase 7b score: phase 5's discover output, %d bytes"
+        % os.path.getsize(base[2]))
+    # three rounds in turns, so that each backend's seconds show their spread
+    walls = {"device": [], "numpy": [], "native": []}
+    for rnd in range(3):
+        for backend in walls:
+            out, rep, launched, wall = run("five", FIVE_METRICS, backend)
+            walls[backend].append(wall)
+            if backend == "device":
+                mine, report = out, rep
+                if rnd == 0:
+                    kernel["launches"] = launched
+            elif not filecmp.cmp(mine, out, shallow=False):
+                raise AssertionError("score --backend device differs from "
+                                     "--backend %s" % backend)
+    say("  five metrics: device, numpy and native byte-identical in 3 rounds, %d "
+        "bytes; %d off-targets reached K5; wall seconds %s"
+        % (os.path.getsize(mine), report["off_targets"],
+           json.dumps({b: [round(w, 4) for w in ws] for b, ws in walls.items()})))
+    extra = ("--inputAnnotationBed", "regions:" + bed)
+    mine = run("eleven", ELEVEN_METRICS, "device", extra)[0]
+    ref = run("eleven", ELEVEN_METRICS, "numpy", extra)[0]
+    if not filecmp.cmp(mine, ref, shallow=False):
+        raise AssertionError("eleven metrics: --backend device differs from numpy")
+    with open(mine) as fh:
+        if "regions" not in fh.readline().split("\t"):
+            raise AssertionError("the BED column is missing from the scored header")
+    say("  eleven metrics: device and numpy byte-identical, %d bytes"
+        % os.path.getsize(mine))
+
+    # K5 at the shape the score run gave it
+    inputs = planted_off_targets(report["off_targets"], report["guides"],
+                                 "spcas9ngg", seed=11)
+    kernel["max_abs_err"] = max(kernel["max_abs_err"],
+                                descriptors_equal(inputs, "descriptors, main path"))
+    at_main = descriptors_timed(inputs)
+    kernel["variants"]["main_path"] = at_main
+    say("  K5 at the main path's %s: kernel %.4f ms, plain %.3f ms, bound %.5f ms"
+        % (at_main["shape"], at_main["ms"], at_main["plain_ms"], at_main["bound_ms"]))
 
 
 def profile_main_path(reps: int = 3, trace_dir: str = "") -> None:
@@ -788,6 +1024,8 @@ def main() -> int:
         phase_byte_identity()
         kernel = phase_main_path()
         variant_kernels, timed = phase_variants()
+        desc_kernel = phase_descriptors()
+        phase_score(desc_kernel)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     kernel["max_abs_err"] = max(kernel["max_abs_err"], err,
@@ -796,7 +1034,7 @@ def main() -> int:
     kernel["variants"].update(
         {k: {f: timed[k][f] for f in K1_FIELDS} for k in ("0", "g2")})
     say("total %.1fs" % (time.perf_counter() - t0))
-    print(json.dumps({"kernels": [kernel] + variant_kernels}))
+    print(json.dumps({"kernels": [kernel] + variant_kernels + [desc_kernel]}))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

@@ -1,17 +1,23 @@
-"""Command-line interface of the PyTorch port: index / discover.
+"""Command-line interface of the PyTorch port: index / discover / score.
 
 `python -m flashfry_tpu_torch discover` takes flashfry_tpu's discover flags
 (reference flag names and defaults), scans on `--device` (default cuda; a
 missing card is an error, never a silent CPU run) or with `--backend numpy`
 on the host, and writes byte-identical output. `index` is a copy of
-flashfry_tpu's host-only index command. Multi-process discover and the
-score / random / extract commands are not ported yet.
+flashfry_tpu's host-only index command. `score` takes flashfry_tpu's score
+flags plus `--backend {device,native,numpy}` and `--device {cuda,cpu}`: the
+device backend (the default) runs the off-target descriptor pass on
+`--device`, the other two score on the host, and all three write
+byte-identical output. FLASHFRY_TPU_SCORE_BACKEND, set to one of the three
+names, is the default of `--backend`. Multi-process discover and the
+random / extract commands are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 import time
 from typing import Optional
@@ -21,6 +27,7 @@ from .device import DEVICES, resolve_device
 from .discovery import find_target_sites
 from .engine import BACKENDS, ScanStats, discover
 from .ops.scan import DeviceScanner
+from .scoring.otbatch import BACKENDS as SCORE_BACKENDS
 from .targetio import write_output
 from .utils import iterate_fasta
 
@@ -66,6 +73,43 @@ def _add_discover(sub):
     return p
 
 
+def score_backend_default() -> str:
+    """--backend's default for score: FLASHFRY_TPU_SCORE_BACKEND when it
+    names a backend, `device` when it is unset or `auto`."""
+    name = os.environ.get("FLASHFRY_TPU_SCORE_BACKEND", "auto")
+    if name == "auto":
+        return "device"
+    if name not in SCORE_BACKENDS:
+        raise SystemExit("FLASHFRY_TPU_SCORE_BACKEND=%s: expected auto or one "
+                         "of %s" % (name, ", ".join(SCORE_BACKENDS)))
+    return name
+
+
+def _add_score(sub):
+    p = sub.add_parser("score", help="Score candidate guides with the specified scoring metrics")
+    p.add_argument("--input", "-input", required=True)
+    p.add_argument("--output", "-output", required=True)
+    p.add_argument("--database", "-database", required=True)
+    p.add_argument("--scoringMetrics", "-scoringMetrics", required=True)
+    p.add_argument("--maxMismatch", "-maxMismatch", type=int, default=None,
+                   help="only consider off-targets within this mismatch distance (default: unlimited)")
+    p.add_argument("--includeOTs", "-includeOTs", action="store_true")
+    p.add_argument("--numericOutput", "-numericOutput", action="store_true")
+    p.add_argument("--inputAnnotationBed", "-inputAnnotationBed", action="append", default=[])
+    p.add_argument("--transformPositions", "-transformPositions", action="append", default=[])
+    p.add_argument("--countOnTargetInScore", "-countOnTargetInScore", action="store_true")
+    p.add_argument("--maxReciprocalMismatch", "-maxReciprocalMismatch", type=int, default=1)
+    p.add_argument("--shortestGuideEnergy", "-shortestGuideEnergy", type=int, default=-1)
+    p.add_argument("--backend", default=score_backend_default(),
+                   choices=SCORE_BACKENDS,
+                   help="off-target scoring backend: the descriptor pass on "
+                        "--device (default), the native host library, or "
+                        "numpy; FLASHFRY_TPU_SCORE_BACKEND sets the default")
+    p.add_argument("--device", default="cuda", choices=DEVICES,
+                   help="device of the descriptor pass (default cuda)")
+    return p
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="flashfry-tpu-torch",
@@ -73,6 +117,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub = ap.add_subparsers(dest="command", required=True)
     _add_index(sub)
     _add_discover(sub)
+    _add_score(sub)
     return ap
 
 
@@ -155,11 +200,26 @@ def cmd_discover(args) -> dict:
     return report
 
 
+def cmd_score(args) -> dict:
+    """Run score; returns a report of phase seconds and counts (also
+    logged)."""
+    device = "cpu"  # the host backends run nothing on a device
+    if args.backend == "device":
+        try:
+            device = resolve_device(args.device)
+        except RuntimeError as e:
+            raise SystemExit("flashfry_tpu_torch: %s" % e)
+    from .scoring import run_score_module
+    return run_score_module(args, device)
+
+
 def run(argv=None) -> Optional[dict]:
-    """Parse argv and run the command; returns discover's report."""
+    """Parse argv and run the command; returns discover's or score's
+    report."""
     args = build_parser().parse_args(argv)
     t0 = time.time()
-    report = {"index": cmd_index, "discover": cmd_discover}[args.command](args)
+    report = {"index": cmd_index, "discover": cmd_discover,
+              "score": cmd_score}[args.command](args)
     logger.info("Total runtime %.2fs", time.time() - t0)
     return report
 

@@ -86,6 +86,17 @@ def stage1_library() -> ctypes.CDLL:
     return lib
 
 
+def descriptors_library() -> ctypes.CDLL:
+    """csrc/descriptors.cu: the mismatch descriptors of off-target scoring."""
+    lib = load("descriptors")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.ff_descriptors_launch
+    # (lo, hi, gi, gcodes, n, n_guides, L, act_n, w0, w1, stream)
+    fn.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, i, p, p, p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def stage1_variants_library() -> ctypes.CDLL:
     """csrc/stage1_variants.cu: the experiment tool's X1-X6."""
     lib = load("stage1_variants")

@@ -1,4 +1,4 @@
-"""The port on a CUDA card: kernel vs plain version, scanner, counter, CLI.
+"""The port on a CUDA card: kernels vs plain versions, scanner, counter, CLIs.
 
 Every test here is marked `gpu` and skips without a card. The machine with
 the card has no JAX, so this file imports only the port (whose numpy
@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from flashfry_tpu_torch import cli
 from flashfry_tpu_torch.database import build_database_from_sites, save_database
 from flashfry_tpu_torch.discovery import find_target_sites
@@ -22,6 +23,7 @@ from flashfry_tpu_torch.engine import pruned_comparisons, pruned_comparisons_dev
 from flashfry_tpu_torch.ops import scan_kernel as tk
 from flashfry_tpu_torch.ops import stage1_variants as sv
 from flashfry_tpu_torch.ops.scan import DeviceScanner, guide_onehot_matrix, plane_codes
+from flashfry_tpu_torch.scoring import device as scoring_device
 from flashfry_tpu_torch.standards import Cas9NGGParameterPack, Cpf1ParameterPack
 from flashfry_tpu_torch.tools import experiment_stage1 as tool
 
@@ -224,3 +226,67 @@ def test_discover_cli_on_cuda_byte_identical_to_numpy(cuda, tmp_path):
         cli.run(base + ["--output", mine, "--device", "cuda"])
         cli.run(base + ["--output", ref, "--backend", "numpy"])
         assert filecmp.cmp(mine, ref, shallow=False) and os.path.getsize(mine)
+
+
+@pytest.mark.parametrize("enzyme", ["spcas9ngg", "spcas919"])
+@pytest.mark.parametrize("n,g", [(1, 1), (1000, 37), (65_537, 1059), (1 << 20, 1059)])
+def test_descriptor_kernel_equals_plain(cuda, enzyme, n, g):
+    """K5 on off-targets with 0..9 planted mismatches (counts 0, 1, 6, 7 and
+    beyond, the overflow bit, every PAM): both words equal the plain
+    version's, one launch per call."""
+    lo, hi, gi, gcodes, act_n, k = chip_smoke.planted_off_targets(n, g, enzyme, n + g, cuda)
+    before = scoring_device.descriptors.launches
+    w0, w1 = scoring_device.descriptors(lo, hi, gi, gcodes, act_n)
+    torch.cuda.synchronize()
+    p0, p1 = scoring_device.descriptors_plain(lo, hi, gi, gcodes, act_n)
+    assert w0.dtype == w1.dtype == torch.int32
+    assert torch.equal(w0, p0) and torch.equal(w1, p1)
+    assert torch.equal((w0 >> 27) & 7, k.clamp(max=7).to(torch.int32))
+    assert torch.equal((w0 >> 30) & 1, (k > 6).to(torch.int32))
+    assert scoring_device.descriptors.launches == before + 1
+    if n >= 1000:
+        assert bool((k > 6).any()) and bool((k == 0).any())
+
+
+def test_descriptor_kernel_launches_nothing_for_no_off_targets(cuda):
+    lo, hi, gi, gcodes, act_n, _k = chip_smoke.planted_off_targets(0, 3, "spcas9ngg", 1, cuda)
+    before = scoring_device.descriptors.launches
+    w0, w1 = scoring_device.descriptors(lo, hi, gi, gcodes, act_n)
+    assert w0.shape == w1.shape == (0,) and w0.is_cuda
+    assert scoring_device.descriptors.launches == before
+
+
+def test_score_cli_on_cuda_byte_identical_to_numpy(cuda, tmp_path):
+    """index -> discover -> score on the card: --backend device writes the
+    bytes of --backend numpy and of --backend native, with one K5 launch
+    for the three off-target models; mm 7 lists hold descriptor-overflow
+    rows."""
+    rng = np.random.default_rng(8)
+    codes = rng.integers(0, 4, size=150_000)
+    unit = rng.integers(0, 4, size=300)
+    for j, p in enumerate(rng.integers(0, 150_000 - 300, size=40)):
+        copy = unit.copy()
+        s = rng.integers(0, 300, size=3 * (j % 2))
+        copy[s] = (copy[s] + rng.integers(1, 4, size=s.size)) % 4
+        codes[p:p + 300] = copy
+    genome = "".join("ACGT"[c] for c in codes)
+    db_path = str(tmp_path / "db")
+    save_database(build_db(genome, Cas9NGGParameterPack), db_path)
+    for mm, guides in (("4", genome[p:p + 300] + genome[2000:2400]), ("7", genome[9000:9300])):
+        fasta = tmp_path / ("g%s.fa" % mm)
+        fasta.write_text(">g\n" + guides + "\n")
+        found = str(tmp_path / ("found" + mm))
+        cli.run(["discover", "--fasta", str(fasta), "--database", db_path, "--output",
+                 found, "--positionOutput", "--maxMismatch", mm, "--device", "cuda"])
+        base = ["score", "--input", found, "--database", db_path, "--includeOTs",
+                "--scoringMetrics", "doench2016cfd,hsu2013,jostandsantos,minot,dangerous,rank"]
+        outs = {}
+        for backend in ("device", "numpy", "native"):
+            outs[backend] = str(tmp_path / ("scored%s.%s" % (mm, backend)))
+            before = scoring_device.descriptors.launches
+            report = cli.run(base + ["--output", outs[backend], "--backend", backend])
+            assert report["off_targets"] > 50
+            assert scoring_device.descriptors.launches - before == (backend == "device")
+        assert os.path.getsize(outs["device"])
+        assert filecmp.cmp(outs["device"], outs["numpy"], shallow=False)
+        assert filecmp.cmp(outs["device"], outs["native"], shallow=False)

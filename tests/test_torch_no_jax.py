@@ -4,8 +4,8 @@ A child process installs a meta-path hook that refuses every import of
 `jax`, `jaxlib`, the JAX package `flashfry_tpu` (exactly that top-level
 name; `flashfry_tpu_torch` is the port), `bench` and `tools`, then imports
 the port, its CLI, its experiment tool and chip_smoke.py, builds a database
-with the port's own host modules and runs a small discover through the
-port's CLI and the tool (X1 and X4 included) on the CPU.
+with the port's own host modules and runs a small discover and score through
+the port's CLI and the tool (X1 and X4 included) on the CPU.
 
 A static check walks every module of the port and chip_smoke.py: none may
 import those packages, nor name `flashfry_tpu` in what it hands a child
@@ -42,6 +42,9 @@ CHILD = textwrap.dedent("""
     import flashfry_tpu_torch.__main__
     from flashfry_tpu_torch import cli, device, engine
     from flashfry_tpu_torch.ops import _build, scan, scan_kernel, stage1_variants
+    from flashfry_tpu_torch.scoring import (aggregate, annotations, base, off_target,
+                                            on_target, otbatch, rnafold)
+    from flashfry_tpu_torch.scoring import device as scoring_device
     from flashfry_tpu_torch.tools import experiment_stage1
 
     import numpy as np
@@ -60,12 +63,23 @@ CHILD = textwrap.dedent("""
         report = cli.run(["discover", "--fasta", os.path.join(d, "g.fa"),
                           "--database", os.path.join(d, "db"),
                           "--output", os.path.join(d, "out"),
-                          "--device", "cpu"])
+                          "--positionOutput", "--device", "cpu"])
         assert report["guides"] > 0 and os.path.getsize(os.path.join(d, "out"))
         assert cli.run(["discover", "--fasta", os.path.join(d, "g.fa"),
                         "--database", os.path.join(d, "db"),
                         "--output", os.path.join(d, "out_np"),
                         "--backend", "numpy"])["guides"] == report["guides"]
+        scored = [cli.run(["score", "--input", os.path.join(d, "out"),
+                           "--database", os.path.join(d, "db"),
+                           "--output", os.path.join(d, "scored_" + b),
+                           "--scoringMetrics", "doench2016cfd,hsu2013,"
+                           "jostandsantos,minot,dangerous,folding,rank",
+                           "--backend", b, "--device", "cpu"])
+                  for b in ("device", "numpy")]
+        assert scored[0]["off_targets"] > 0 and scored[0]["device"] == "cpu"
+        with open(os.path.join(d, "scored_device"), "rb") as a, \
+                open(os.path.join(d, "scored_numpy"), "rb") as b:
+            assert a.read() == b.read()
     experiment_stage1.run(device="cpu", chunk=4096, G=64, reps=1)
     experiment_stage1.run(device="cpu", chunk=4096, G=256, reps=1,
                           variants_spec="1,bf,g2bf")
