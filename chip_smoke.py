@@ -35,11 +35,17 @@ each of which fails the run on any mismatch:
      mode (K1 and its 512 super rows, X1, X2, X3, X4 and its 512 super rows,
      X5 at two tiles, X6 in three modes) bitwise against its plain version
      and timed beside it, X6 dot at 512 guides, and X6 copy's bytes/s;
+     then X4 (the tensor-core kernel) bitwise against its plain version on
+     a ragged 2^20-target slice with a PAD_CODE tail at 1, 15, 16, 17, 100,
+     1024, 1025 and 2048 guide rows and 512 super rows, each at the
+     thresholds -2^31, -257, -1, 0, 1, 16, 32, 33, 256, 257 and 2^31-1, one
+     counted launch per call;
   7. scoring: (a) the descriptor kernel K5 (`scoring/device.py`,
      csrc/descriptors.cu) bitwise against its plain version on off-targets
      with 0..9 planted mismatches, N of 1, 1000, 65,537 and 2^24, a 20-mer
-     and a 19-mer enzyme, 1 and 1059 guides, one counted launch per call,
-     timed at 2^24 beside the plain version and its bound; (b) the port's
+     and a 19-mer enzyme, 1 and 1059 guides, and at 65,537 off-targets with
+     0 and all L positions active, one counted launch per call, timed at
+     2^24 beside the plain version and its bound; (b) the port's
      `score` CLI on phase 5's own discover output: five metrics on the card
      (`--backend device`), then `--backend numpy` and `--backend native`,
      the three files byte-identical, K5 launches > 0 on the first and 0 on
@@ -100,8 +106,8 @@ from flashfry_tpu_torch.ops.scan import (  # noqa: E402
     guide_onehot_matrix, split_words)
 from flashfry_tpu_torch.ops import stage1_variants as sv  # noqa: E402
 from flashfry_tpu_torch.ops.scan_kernel import (  # noqa: E402
-    _REF_ELEMS, K_COLS, OH_ROWS, codes_onehot_compact, compact_guides,
-    guide_block_layout, launch, stage1, stage1_reference)
+    _REF_ELEMS, K_COLS, OH_ROWS, codes_onehot, codes_onehot_compact,
+    compact_guides, guide_block_layout, launch, stage1, stage1_reference)
 from flashfry_tpu_torch.scoring.device import (  # noqa: E402
     descriptors, descriptors_plain)
 from flashfry_tpu_torch.standards import name_to_parameter_pack  # noqa: E402
@@ -149,6 +155,12 @@ FIVE_METRICS = "doench2016cfd,hsu2013,jostandsantos,minot,dangerous"
 ELEVEN_METRICS = FIVE_METRICS + (",doench2014ontarget,moreno2015,bedannotator,"
                                  "reciprocalofftargets,folding,rank")
 K1_FIELDS = TIMED_FIELDS + ("bound_ms_128", "kernel_only_ms")
+# X4's edge cases (phase 6): guide rows around its 16-row m-tile and its
+# 1024-row stage, the tool's paired rows; int32 thresholds around bf16's
+# exact range and the counts' 0..32; the targets of the slice
+X4_ROWS = (1, 15, 16, 17, 100, 1024, 1025, 2048, "512 super rows")
+THR_EDGES = (-2 ** 31, -257, -1, 0, 1, 16, 32, 33, 256, 257, 2 ** 31 - 1)
+X4_EDGE_N = 1 << 20
 
 
 def say(*a) -> None:
@@ -719,6 +731,7 @@ def phase_variants():
         "expanded copy %.1f GB/s (%d bytes read + %d written)"
         % (G // 2, dot_half, timed["e_dot"]["ms"], G,
            timed["e_dot"]["ms"] / dot_half, copy_bytes / 1e9, oh.numel(), n))
+    x4_edges(inp.codes)
 
     entries = []
     for name, (replaces, ks) in VARIANT_KERNELS.items():
@@ -740,6 +753,67 @@ def phase_variants():
                            % (2 * n, oh.numel()))
         entries.append(e)
     return entries, timed
+
+
+def x4_edge_guides(codes: torch.Tensor, n_real: int, rows, seed: int) -> torch.Tensor:
+    """(G, 128) block-layout 0/1 guides on codes' device: one-hots of all 32
+    code rows of random target columns among the first n_real with 0..6
+    substitutions, every fourth row random 0/1 bytes (1s in columns 24..31
+    too), the last G // 16 rows zero padding; or "512 super rows", the
+    paired rows of such a 1024-row block."""
+    n = 1024 if rows == "512 super rows" else rows
+    dev = codes.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cols = torch.randint(0, n_real, (n,), generator=gen, device=dev)
+    sel = codes[:, cols].t().long()
+    k = torch.randint(0, 7, (n, 1), generator=gen, device=dev)
+    sub = torch.rand((n, 32), generator=gen, device=dev).argsort(dim=1) < k
+    delta = torch.randint(1, 4, (n, 32), generator=gen, device=dev)
+    guides = codes_onehot(torch.where(sub, (sel + delta) % 4, sel).to(torch.int8))
+    dense = (torch.rand((n, OH_ROWS), generator=gen, device=dev) < 0.25).to(torch.int8)
+    guides[3::4] = dense[3::4]
+    guides[n - n // 16:] = 0
+    return sv.super_rows(guides) if rows == "512 super rows" else guides.contiguous()
+
+
+def x4_edge_compares(codes: torch.Tensor, n_real: int, rows) -> int:
+    """X4 == its plain version on codes (real targets first, then PAD_CODE
+    columns) with x4_edge_guides(rows) at every THR_EDGES: every byte 1 at
+    thr <= 0, none past 32, one counted launch per call. Returns the number
+    of thresholds at which some but not all real targets hit."""
+    guides = x4_edge_guides(codes, n_real, rows, seed=rows if isinstance(rows, int) else 512)
+    launches, partial = sv.v6_bf16out.launches, 0
+    for thr in THR_EDGES:
+        got = sv.v6_bf16out(codes, guides, thr)
+        max_abs_err(got, sv.v6_bf16out_reference(codes, guides, thr),
+                    "v6_bf16out G=%s thr=%d" % (rows, thr))
+        hits = int(got.sum())
+        if (thr <= 0 and hits != codes.shape[1]) or (thr > 32 and hits):
+            raise AssertionError("v6_bf16out G=%s thr=%d: %d of %d bytes set"
+                                 % (rows, thr, hits, codes.shape[1]))
+        partial += 0 < hits < n_real
+    if sv.v6_bf16out.launches - launches != len(THR_EDGES) * (DEVICE == "cuda"):
+        raise AssertionError("v6_bf16out G=%s: %d launches for %d calls"
+                             % (rows, sv.v6_bf16out.launches - launches, len(THR_EDGES)))
+    return partial
+
+
+def x4_edges(codes: torch.Tensor) -> int:
+    """Phase 6's X4 edge cases on the first X4_EDGE_N columns of codes with
+    1001 PAD_CODE columns after them; returns the number of compares."""
+    n_real = min(X4_EDGE_N, codes.shape[1])
+    src = torch.cat([codes[:, :n_real],
+                     torch.full((codes.shape[0], 1001), PAD_CODE, dtype=torch.int8,
+                                device=codes.device)], dim=1).contiguous()
+    partial = sum(x4_edge_compares(src, n_real, rows) for rows in X4_ROWS)
+    if not partial:
+        raise AssertionError("v6_bf16out: no threshold at which some but not all hit")
+    n_cmp = len(X4_ROWS) * len(THR_EDGES)
+    say("  v6_bf16out edges: (32, %d) with a PAD_CODE tail, G=%s, thr %s: %d "
+        "bitwise-equal compares, one launch each"
+        % (src.shape[1], "/".join(map(str, X4_ROWS)),
+           "/".join(map(str, THR_EDGES)), n_cmp))
+    return n_cmp
 
 
 def planted_off_targets(n: int, g: int, enzyme: str, seed: int, device=None):
@@ -778,10 +852,13 @@ def planted_off_targets(n: int, g: int, enzyme: str, seed: int, device=None):
             act_n, k)
 
 
-def descriptors_equal(inputs, what: str) -> int:
+def descriptors_equal(inputs, what: str, planted: bool = True) -> int:
     """One counted launch of K5 on `inputs` (planted_off_targets' result):
     both words equal the plain version's, and the count and overflow bits
-    say what was planted. Returns the largest error (0)."""
+    say what was planted; with planted=False (act_n other than the
+    enzyme's active positions) act_n = 0 gives no mismatch and more active
+    positions count at least what was planted. Returns the largest error
+    (0)."""
     lo, hi, gi, gcodes, act_n, k = inputs
     launches = descriptors.launches
     got = descriptors(lo, hi, gi, gcodes, act_n)
@@ -798,9 +875,15 @@ def descriptors_equal(inputs, what: str) -> int:
             raise AssertionError("%s w%d: kernel != plain in %d of %d words"
                                  % (what, j, int((a != b).sum()), a.numel()))
     k = k.to(torch.int32)
-    if not (torch.equal((got[0] >> 27) & 7, k.clamp(max=7))
-            and torch.equal((got[0] >> 30) & 1, (k > 6).to(torch.int32))
-            and torch.equal((got[1] >> 27) & 15, lo & 15)):
+    count = (got[0] >> 27) & 7
+    if not planted:
+        says = (not bool(got[0].any()) and torch.equal(got[1], (lo & 15) << 27)
+                if act_n == 0 else bool((count >= k.clamp(max=7)).all()))
+    else:
+        says = (torch.equal(count, k.clamp(max=7))
+                and torch.equal((got[0] >> 30) & 1, (k > 6).to(torch.int32))
+                and torch.equal((got[1] >> 27) & 15, lo & 15))
+    if not says:
         raise AssertionError("%s: the words do not say what was planted" % what)
     if descriptors.launches - launches != (DEVICE == "cuda"):
         raise AssertionError("%s: %d launches for one call"
@@ -848,8 +931,17 @@ def phase_descriptors() -> dict:
                     ungrouped = descriptors_timed(shuffled)
                     del perm, lo, hi, gi, k, shuffled
                 del inputs
-        say("  %s: N=%s, G=%s: kernel == plain"
-            % (enzyme, "/".join(map(str, DESC_N)), "/".join(map(str, DESC_GUIDES))))
+        # no active position, and every position (the PAM's too)
+        inputs = planted_off_targets(65_537, DESC_GUIDES[-1], enzyme, seed=3)
+        L = inputs[3].shape[1]
+        for act_n in (0, L):
+            err = max(err, descriptors_equal(
+                inputs[:4] + (act_n,) + inputs[5:],
+                "descriptors %s act_n=%d" % (enzyme, act_n), planted=False))
+            n_cmp += 1
+        del inputs
+        say("  %s: N=%s, G=%s; act_n 0 and %d at N=65537: kernel == plain"
+            % (enzyme, "/".join(map(str, DESC_N)), "/".join(map(str, DESC_GUIDES)), L))
     launches = descriptors.launches
     empty = planted_off_targets(0, 1, DESC_ENZYMES[0], seed=0)
     if descriptors(*empty[:5])[0].numel() or descriptors.launches != launches:

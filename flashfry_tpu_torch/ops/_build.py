@@ -91,8 +91,8 @@ def descriptors_library() -> ctypes.CDLL:
     lib = load("descriptors")
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.ff_descriptors_launch
-    # (lo, hi, gi, gcodes, n, n_guides, L, act_n, w0, w1, stream)
-    fn.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, i, p, p, p]
+    # (lo, hi, gi, gcodes, guide words, n, n_guides, L, act_n, w0, w1, stream)
+    fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, i, i, i, p, p, p]
     fn.restype = ctypes.c_int
     return lib
 

@@ -25,8 +25,8 @@ layout" column 32b+i (`scan_kernel.guide_block_layout`).
 
 Each wrapper takes a CPU tensor to its plain PyTorch version `*_reference`,
 and a CUDA tensor to its hand-written kernel in csrc/stage1_variants.cu (its
-header gives the design), or raises; `<wrapper>.launches` counts kernel
-launches. Input checks, the chunked plain matmul and the launch are
+header gives the design: X4 on the int8 tensor cores, the others on the
+CUDA cores), or raises; `<wrapper>.launches` counts kernel launches. Input checks, the chunked plain matmul and the launch are
 scan_kernel's, shared with stage 1.
 """
 
@@ -191,7 +191,9 @@ def v4_concat_onehot(codes: torch.Tensor, guide_blk: torch.Tensor,
 def v6_bf16out(codes: torch.Tensor, guide_blk: torch.Tensor,
                thr: int) -> torch.Tensor:
     """X4: (32, N) int8 codes, (G, 128) int8 0/1 block-layout guides (or
-    super rows, the max of two guides' rows) -> (1, N) int8 hit bytes."""
+    super rows, the max of two guides' rows) -> (1, N) int8 hit bytes. The
+    kernel multiplies on the int8 tensor cores and takes the byte as
+    any(count >= thr), which is the bf16 test for every int32 thr."""
     check_inputs(codes, guide_blk, "v6_bf16out")
     _check_thr(thr, "v6_bf16out")
     if codes.device.type == "cpu":

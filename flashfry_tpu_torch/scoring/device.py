@@ -18,9 +18,13 @@ Word layout (consumed by otbatch.unpack_descriptors):
 
 `descriptors` is the wrapper: CPU tensors go to the plain PyTorch version
 `descriptors_plain`; CUDA tensors launch the hand-written kernel of
-`csrc/descriptors.cu` (one thread per off-target; its header says what
-bounds it on Hopper) or raise. `descriptors.launches` counts kernel
-launches. `extract_descriptors` is the host entry point the score batch
+`csrc/descriptors.cu` or raise. The kernel runs one thread per off-target
+and no per-position loop: it XORs the packed off-target with its guide's
+packed word (built on the card from gcodes, into scratch this wrapper
+allocates), collapses each 2-bit difference to one bit, counts the bits
+and walks at most six of them from the first position; its header says
+what bounds it on Hopper. `descriptors.launches` counts wrapper calls that
+launch it. `extract_descriptors` is the host entry point the score batch
 calls.
 """
 
@@ -129,11 +133,14 @@ def descriptors(lo: torch.Tensor, hi: torch.Tensor, gi: torch.Tensor,
     from ..ops._build import descriptors_library
     fn = descriptors_library().ff_descriptors_launch
     p = ctypes.c_void_p
+    # scratch for the packed guide words the launcher builds first
+    words = torch.empty(gcodes.shape[0], dtype=torch.int64, device=lo.device)
     with torch.cuda.device(lo.device):
         stream = torch.cuda.current_stream(lo.device).cuda_stream
         err = fn(p(lo.data_ptr()), p(hi.data_ptr()), p(gi.data_ptr()),
-                 p(gcodes.data_ptr()), n, gcodes.shape[0], gcodes.shape[1],
-                 int(act_n), p(w0.data_ptr()), p(w1.data_ptr()), p(stream))
+                 p(gcodes.data_ptr()), p(words.data_ptr()), n, gcodes.shape[0],
+                 gcodes.shape[1], int(act_n), p(w0.data_ptr()), p(w1.data_ptr()),
+                 p(stream))
     if err != 0:
         raise RuntimeError("ff_descriptors_launch failed: cudaError %d" % err)
     descriptors.launches += 1

@@ -123,6 +123,20 @@ def test_stage1_variant_kernels_equal_plain(cuda):
     assert [k.launches - b for k, b in zip(sv.KERNELS, before)] == [12, 12, 12, 24, 36, 16]
 
 
+@pytest.mark.parametrize("G", chip_smoke.X4_ROWS)
+def test_v6_bf16out_kernel_equals_plain_at_every_row_count_and_thr_edge(cuda, G):
+    """X4 on the tensor cores, on a ragged width with a PAD_CODE tail, at
+    guide rows around its 16-row m-tile and its 1024-row stage (1025 and
+    2048 rows take two stages), on super rows, and with random 0/1 rows
+    (1s in columns 24..31), at every int32 threshold edge: bitwise equal to
+    the plain version, one launch per call, all ones at thr <= 0."""
+    rng = np.random.default_rng(12)
+    n_real, n = 150_001, 153_333
+    targets = rng.integers(0, 1 << 46, size=n_real, dtype=np.uint64)
+    codes = torch.from_numpy(plane_codes(targets, 23, n)).to(cuda)
+    assert chip_smoke.x4_edge_compares(codes, n_real, G) > 0
+
+
 @pytest.mark.parametrize("G", [64, 192, 1000])
 def test_v1_gloop_kernel_reads_only_whole_tiles(cuda, G):
     """X1 with a ragged tail of guide rows (64: no whole tile, the max stays
@@ -246,6 +260,18 @@ def test_descriptor_kernel_equals_plain(cuda, enzyme, n, g):
     assert scoring_device.descriptors.launches == before + 1
     if n >= 1000:
         assert bool((k > 6).any()) and bool((k == 0).any())
+
+
+@pytest.mark.parametrize("enzyme", ["spcas9ngg", "spcas919"])
+@pytest.mark.parametrize("act", ["0", "n_act", "L"])
+def test_descriptor_kernel_equals_plain_at_every_active_count(cuda, enzyme, act):
+    """K5 with no active position, the enzyme's active positions and all L
+    (the PAM positions count too), L = 23 and 22: both words equal the
+    plain version's, one launch per call."""
+    lo, hi, gi, gcodes, n_act, k = chip_smoke.planted_off_targets(65_537, 1059, enzyme, 3, cuda)
+    act_n = {"0": 0, "n_act": n_act, "L": gcodes.shape[1]}[act]
+    assert chip_smoke.descriptors_equal((lo, hi, gi, gcodes, act_n, k), "%s act_n=%d"
+                                        % (enzyme, act_n), planted=act == "n_act") == 0
 
 
 def test_descriptor_kernel_launches_nothing_for_no_off_targets(cuda):

@@ -5,7 +5,9 @@ Everything here is bitwise; no tolerance is used anywhere.
   (a) the descriptor pass: the port's extract_descriptors on the CPU (the
       plain PyTorch version of csrc/descriptors.cu) equals flashfry_tpu's
       jitted JAX pass word for word, on off-targets with 0..9 planted
-      mismatches;
+      mismatches; and a numpy model of the kernel's own algorithm (packed
+      guide words, XOR, one bit per mismatching position, at most six
+      steps from the highest set bit) equals both;
   (b) the port's OTScoreBatch on its three backends (device on the CPU,
       native, numpy) gives the f64 columns of flashfry_tpu's numpy backend,
       compared as int64 views, descriptor-overflow rows included;
@@ -35,6 +37,7 @@ from flashfry_tpu.scoring import off_target as ref_off_target
 from flashfry_tpu.scoring import otbatch as ref_otbatch
 from flashfry_tpu_torch import cli
 from flashfry_tpu_torch.bitcoding import BitEncoding
+from flashfry_tpu_torch.ops.scan import split_words
 from flashfry_tpu_torch.scoring import device as port_device
 from flashfry_tpu_torch.scoring import off_target, otbatch
 from flashfry_tpu_torch.standards import (Cas9NGG19ParameterPack, Cas9NGGParameterPack,
@@ -101,6 +104,77 @@ def test_descriptors_plain_equals_flashfry_tpu(enzyme, n):
     assert np.array_equal(overflow, (k > 6).astype(overflow.dtype))
     assert np.array_equal(pam, (flat & np.uint64(15)).astype(pam.dtype))
     assert port_device.descriptors.launches == 0  # the CPU launches no kernel
+
+
+U64 = np.uint64
+
+
+def clz64(v):
+    """Leading zeros of each uint64 (64 for 0), as the card's __clzll."""
+    v = v.copy()
+    n = np.zeros(v.shape, np.uint64)
+    for s in (32, 16, 8, 4, 2, 1):
+        top_zero = (v >> U64(64 - s)) == 0
+        n += np.where(top_zero, U64(s), U64(0))
+        v = np.where(top_zero, v << U64(s), v)
+    return n + ((v >> U64(63)) == 0).astype(np.uint64)
+
+
+def set_bit_walk(lo, hi, gi, gcodes, act_n):
+    """numpy model of csrc/descriptors.cu, step for step: lo/hi/gi int32
+    (N,), gcodes (G, L) int8 -> (w0, w1) int32 (N,)."""
+    G, L = gcodes.shape
+    up = U64(64 - 2 * L)
+    words = np.zeros(G, np.uint64)  # the pack kernel
+    for p in range(L):
+        words = (words << U64(2)) | (gcodes[:, p].astype(np.uint64) & U64(3))
+    words <<= up  # position p at bits 63 - 2p, 62 - 2p
+    seq = ((hi.view(np.uint32).astype(np.uint64) << U64(32))
+           | lo.view(np.uint32).astype(np.uint64)) << up
+    guide = words[np.clip(gi, 0, G - 1)]
+    x = seq ^ guide
+    active = U64(0) if act_n == 0 else \
+        (U64(2 ** 64 - 1) << U64(64 - 2 * act_n)) & U64(0xAAAAAAAAAAAAAAAA)
+    m = (x | (x << U64(1))) & active  # bit 63 - 2p: position p mismatches
+    count = np.bitwise_count(m).astype(np.uint64)
+    w = [np.zeros(lo.shape, np.uint64), np.zeros(lo.shape, np.uint64)]
+    for k in range(6):  # the highest set bit first: ascending positions
+        z = clz64(m) & U64(63)  # 2p
+        o = (seq << z) >> U64(62)
+        g = (guide << z) >> U64(62)
+        d = np.where(U64(k) < count, ((z >> U64(1)) << U64(4)) | (g << U64(2)) | o, U64(0))
+        w[k // 3] |= d << U64(9 * (k % 3))
+        m &= ~(U64(1 << 63) >> z)
+    w[0] |= (np.minimum(count, U64(7)) << U64(27)) | ((count > 6).astype(np.uint64) << U64(30))
+    w[1] |= (lo.view(np.uint32).astype(np.uint64) & U64(15)) << U64(27)
+    return tuple(a.astype(np.uint32).view(np.int32) for a in w)
+
+
+@pytest.mark.parametrize("enzyme", ["spcas9ngg", "spcas919"])
+@pytest.mark.parametrize("act", ["0", "1", "n_act", "L"])
+def test_set_bit_walk_equals_plain_and_flashfry_tpu(enzyme, act):
+    """The kernel's algorithm, modelled in numpy, at act_n = 0 (no
+    descriptor), 1, the enzyme's active positions and L (the PAM positions
+    count too), on 0..9 planted mismatches: word for word the plain
+    version's and the JAX pass's."""
+    pack = name_to_parameter_pack(enzyme)
+    flat, gi, glongs, L, act_pos, k = planted(pack, 3000, g=41, seed=len(act) + len(enzyme))
+    act_n = {"0": 0, "1": 1, "n_act": act_pos.shape[0], "L": L}[act]
+    lo, hi = split_words(flat)
+    model = set_bit_walk(lo, hi, gi, port_device.guide_codes(glongs, L), act_n)
+    plain = port_device.extract_descriptors(flat, gi, glongs, L, np.arange(act_n), "cpu")
+    ref = ref_device.extract_descriptors(flat, gi, glongs, L, np.arange(act_n))
+    for got, want, name in zip(model + plain, ref + ref, ("w0", "w1") * 2):
+        assert np.array_equal(got, want), (name, act)
+    _, _, _, mmc, overflow, pam = otbatch.unpack_descriptors(*model)
+    assert np.array_equal(pam, (flat & np.uint64(15)).astype(pam.dtype))
+    if act == "0":
+        assert not mmc.any() and not model[0].any()
+    elif act == "n_act":
+        assert np.array_equal(mmc, np.minimum(k, 7))
+        assert np.array_equal(overflow, (k > 6).astype(overflow.dtype))
+    else:
+        assert bool((mmc > 0).any()) and bool((mmc < 7).any())
 
 
 def test_extract_descriptors_edges():

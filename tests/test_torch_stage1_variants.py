@@ -8,7 +8,10 @@ X2 make_v3_int16, X3 make_v4_concat_onehot, X4 make_v6_bf16out (on G guide
 rows and on G/2 super rows), X5 make_v5_tile at 2048 and 8192, X6
 make_expanded in its three modes. Two enzymes, max_mismatch 0..5, PAD_CODE
 columns and guide padding rows; every value is an integer (X4's bf16 counts
-are exact), so every comparison is exact (tolerance 0).
+are exact), so every comparison is exact (tolerance 0). Two identities the
+tensor-core X4 kernel rests on are held on the plain version: its byte is
+the OR of the bytes of row chunks zero-padded to 16 rows, and it equals the
+integer any(count >= thr) at every int32 threshold.
 """
 
 import jax.numpy as jnp
@@ -21,7 +24,8 @@ from flashfry_tpu.bitcoding import BitEncoding
 from flashfry_tpu.ops.scan import PAD_CODE, guide_onehot_matrix, plane_codes
 from flashfry_tpu.standards import Cas9NGGParameterPack, Cpf1ParameterPack
 from flashfry_tpu_torch.ops import stage1_variants as sv
-from flashfry_tpu_torch.ops.scan_kernel import guide_block_layout
+from flashfry_tpu_torch.ops.scan_kernel import (codes_onehot, guide_block_layout,
+                                                matches_reference)
 from flashfry_tpu_torch.tools import experiment_stage1 as tool
 from tools import experiment_stage1 as X
 
@@ -365,3 +369,78 @@ def test_tool_group2_runs_stage1_on_super_rows():
     (v,) = tool.variants(inp, ["g2"])
     assert v.name == "group2 (32 super rows)" and v.work == 4096 * 64
     assert torch.equal(v.kernel(), v.plain())
+
+
+THR_EDGES = (-2 ** 31, -257, -1, 0, 1, 16, 32, 33, 256, 257, 2 ** 31 - 1)
+
+
+def x4_case(rows, seed):
+    """(32, N_PAD) Cas9NGG codes and `rows` block-layout 0/1 guide rows: a
+    third exact one-hots of target columns (all 32 positions, so counts
+    reach 32), a third those with 1..6 substitutions, a third random 0/1
+    bytes (1s in any column, 24..31 included)."""
+    rng = np.random.default_rng(seed)
+    L = Cas9NGGParameterPack.total_scan_length
+    targets = rng.integers(0, 1 << (2 * L), size=N_REAL, dtype=np.uint64)
+    codes = torch.from_numpy(plane_codes(targets, L, N_PAD))
+    sel = codes[:, torch.from_numpy(rng.integers(0, N_REAL, size=rows))].t().clone()
+    for j in range(rows // 3, rows):
+        pos = torch.from_numpy(rng.choice(32, size=1 + j % 6, replace=False))
+        sel[j, pos] = (sel[j, pos] + int(rng.integers(1, 4))) % 4
+    guides = codes_onehot(sel)
+    dense = torch.from_numpy((rng.random((rows, 128)) < 0.25).astype(np.int8))
+    guides[2 * rows // 3:] = dense[2 * rows // 3:]
+    return codes, guides.contiguous()
+
+
+# rows of the block, whether they are paired into super rows, the chunks
+X4_CHUNKS = {
+    "2048 as 1024+1024": (2048, False, (1024, 1024)),
+    "2048 as 1024+1008+16": (2048, False, (1024, 1008, 16)),
+    "1025 as 1024+1": (1025, False, (1024, 1)),
+    "512 super rows as 256+256": (1024, True, (256, 256)),
+}
+
+
+@pytest.mark.parametrize("case", list(X4_CHUNKS))
+def test_v6_bf16out_is_the_or_over_zero_padded_row_chunks(case):
+    """What X4's kernel does with more rows than it stages at once: the OR
+    of the bytes over row chunks, each zero-padded to a multiple of 16
+    rows, is the byte over all rows, at every threshold edge."""
+    rows, pair, chunks = X4_CHUNKS[case]
+    codes, guides = x4_case(rows, seed=rows + len(chunks))
+    if pair:
+        guides = sv.super_rows(guides)
+    assert sum(chunks) == guides.shape[0]
+    bounds = np.cumsum((0,) + chunks)
+    hits = []
+    for thr in (-1, 0, 1, 16, 20, 32, 33):
+        want = sv.v6_bf16out(codes, guides, thr)
+        got = torch.zeros_like(want)
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            part = torch.nn.functional.pad(guides[a:b], (0, 0, 0, -(b - a) % 16))
+            got |= sv.v6_bf16out(codes, part.contiguous(), thr)
+        assert torch.equal(got, want), (case, thr)
+        hits.append(int(want[0, :N_REAL].sum()))
+    assert hits[:2] == [N_REAL] * 2 and hits[-1] == 0
+    assert any(0 < h < N_REAL for h in hits), hits
+
+
+@pytest.mark.parametrize("thr", THR_EDGES)
+def test_v6_bf16out_is_integer_any_count_at_least_thr(thr):
+    """X4's bf16 byte, max_g bf16(count_g) >= bf16(thr), is the integer
+    any_g(count_g >= thr) for every int32 thr: counts are at most 32 and
+    exact in bf16, and bf16 rounding keeps order. Every byte is 1 at
+    thr <= 0 (PAD_CODE columns count 0) and 0 past 32."""
+    codes, guides = x4_case(300, seed=5)
+    for g in (guides, sv.super_rows(guides)):
+        got = sv.v6_bf16out(codes, g, thr)
+        want = matches_reference(codes, g, codes_onehot,
+                                 lambda m: (m >= thr).any(dim=1), torch.int8)
+        assert torch.equal(got, want.unsqueeze(0)), thr
+        if thr <= 0:
+            assert bool(got.all())
+        elif thr > 32:
+            assert not bool(got.any())
+        else:
+            assert bool(got[0, :N_REAL].any()) and not bool(got[0, N_REAL:].any())
