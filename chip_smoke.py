@@ -39,7 +39,10 @@ each of which fails the run on any mismatch:
      a ragged 2^20-target slice with a PAD_CODE tail at 1, 15, 16, 17, 100,
      1024, 1025 and 2048 guide rows and 512 super rows, each at the
      thresholds -2^31, -257, -1, 0, 1, 16, 32, 33, 256, 257 and 2^31-1, one
-     counted launch per call;
+     counted launch per call; and X5 and X6 full/dot (the wgmma kernel) on
+     the same slice, at 1, 63, 64, 65, 100, 1024, 1025 and 2048 guide rows
+     and the same thresholds, X5 at target tiles 1, 100, 2048, 8192 and one
+     past the slice, X6 on its expanded one-hot and on random 0/1 bytes;
   7. scoring: (a) the descriptor kernel K5 (`scoring/device.py`,
      csrc/descriptors.cu) bitwise against its plain version on off-targets
      with 0..9 planted mismatches, N of 1, 1000, 65,537 and 2^24, a 20-mer
@@ -63,7 +66,8 @@ pre-built (N, 128) one-hot ((N, 96) for K1; built before timing) by the
 guides, then the epilogue, in the plain version's column chunks; for X6
 copy, whose output is one-hot row 0, a clone of that row. For K1 it also
 times the launcher alone on pre-compacted guides (kernel_only_ms), so that
-the wrapper's own cost per call shows. X6 copy is the tool's read-rate
+the wrapper's own cost per call shows; so it does for X5 and X6 full/dot,
+whose wrappers check the guides' 0/1 bytes on every call. X6 copy is the tool's read-rate
 probe: its bound is of the N bytes its output needs, while the kernel, like
 the TPU kernel, reads the whole one-hot by design (its entry says so and
 carries the bytes/s). K5's bound is its bytes (12 read and 8 written per
@@ -155,12 +159,23 @@ FIVE_METRICS = "doench2016cfd,hsu2013,jostandsantos,minot,dangerous"
 ELEVEN_METRICS = FIVE_METRICS + (",doench2014ontarget,moreno2015,bedannotator,"
                                  "reciprocalofftargets,folding,rank")
 K1_FIELDS = TIMED_FIELDS + ("bound_ms_128", "kernel_only_ms")
+# the wgmma kernel's tool keys, also timed through their launcher alone:
+# (wrapper, launcher, t_tile or mode)
+LAUNCHER_ONLY = {"5a": (sv.v5_tile, "ff_v5_tile_launch", 2048),
+                 "5b": (sv.v5_tile, "ff_v5_tile_launch", 8192),
+                 "e_full": (sv.expanded, "ff_expanded_launch", sv.MODES["full"]),
+                 "e_dot": (sv.expanded, "ff_expanded_launch", sv.MODES["dot"])}
 # X4's edge cases (phase 6): guide rows around its 16-row m-tile and its
 # 1024-row stage, the tool's paired rows; int32 thresholds around bf16's
 # exact range and the counts' 0..32; the targets of the slice
 X4_ROWS = (1, 15, 16, 17, 100, 1024, 1025, 2048, "512 super rows")
 THR_EDGES = (-2 ** 31, -257, -1, 0, 1, 16, 32, 33, 256, 257, 2 ** 31 - 1)
 X4_EDGE_N = 1 << 20
+# X5's and X6's edge cases (phase 6, the same slice): guide rows around the
+# wgmma kernel's 64-row m-tile and its 1024-row stage; X5's target tiles
+# around its 128-target B tile ("n+1": one tile longer than the slice)
+WGMMA_ROWS = (1, 63, 64, 65, 100, 1024, 1025, 2048)
+X5_TILES = (1, 100, 2048, 8192, "n+1")
 
 
 def say(*a) -> None:
@@ -204,18 +219,25 @@ def k1_bound(codes: torch.Tensor, g_rows: int) -> dict:
             "bound_ms_128": product_bound(codes, g_rows)["bound_ms"]}
 
 
+def kernel_only_ms(wrapper, fn, src: torch.Tensor, guides: torch.Tensor, thr: int,
+                   want: torch.Tensor, *extra, reps: int = 10) -> float:
+    """The launcher fn alone, without the wrapper's checks (the 0/1 guide
+    check waits for the device once per call); its bytes must equal
+    want's."""
+
+    def call():
+        return launch(wrapper, fn, src, guides, thr, *extra, check_guides=False)
+
+    max_abs_err(call().view(want.dtype).reshape(want.shape), want, "%s launcher" % wrapper.__name__)
+    return cuda_ms(call, reps)
+
+
 def k1_kernel_only_ms(codes: torch.Tensor, compacted: torch.Tensor, thr: int,
                       want: torch.Tensor, reps: int = 10) -> float:
     """K1's launcher on guides compacted beforehand (compact_guides),
-    without stage1's checks and compaction, which stage1 pays on every call
-    (one wait for the device among them); its bytes must equal want's."""
-    fn = _build.stage1_library().ff_stage1_launch
-
-    def call():
-        return launch(stage1, fn, codes, compacted, thr, check_guides=False)
-
-    max_abs_err(call().view(torch.bool), want, "K1 launcher")
-    return cuda_ms(call, reps)
+    without stage1's checks and compaction, which stage1 pays on every call."""
+    return kernel_only_ms(stage1, _build.stage1_library().ff_stage1_launch, codes, compacted,
+                          thr, want, reps=reps)
 
 
 def prebuilt_onehot(src: torch.Tensor, onehot_T) -> torch.Tensor:
@@ -710,13 +732,20 @@ def phase_variants():
             else:
                 b = product_bound(v.src, v.rows.shape[0])
                 lib = library_ms(oh, v.rows, v.epilogue, v.plain())
+            if v.key in LAUNCHER_ONLY:
+                wrapper, fn, extra = LAUNCHER_ONLY[v.key]
+                fn = getattr(_build.stage1_variants_library(), fn)
+                b["kernel_only_ms"] = kernel_only_ms(wrapper, fn, v.src, v.rows, inp.thr,
+                                                     v.plain(), extra)
             timed[v.key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
                             "max_abs_err": err, **b, "library_ms": lib}
             say("  %-32s kernel %.3f ms (%.3f, %.3f), plain %.3f ms (%.3f, "
                 "%.3f), library %.3f ms, bound %.3f ms (%s), %.3g cmp/s, bitwise "
-                "equal" % (v.name, timed[v.key]["ms"], k1, k2,
-                           timed[v.key]["plain_ms"], p1, p2, lib, b["bound_ms"],
-                           b["bound_by"], v.work / timed[v.key]["ms"] * 1e3))
+                "equal%s" % (v.name, timed[v.key]["ms"], k1, k2,
+                             timed[v.key]["plain_ms"], p1, p2, lib, b["bound_ms"],
+                             b["bound_by"], v.work / timed[v.key]["ms"] * 1e3,
+                             "; launcher alone %.3f ms" % b["kernel_only_ms"]
+                             if "kernel_only_ms" in b else ""))
         del oh
 
     # dot's guide loop has to scale with G (nvcc kept it); the bytes/s of
@@ -732,6 +761,7 @@ def phase_variants():
         % (G // 2, dot_half, timed["e_dot"]["ms"], G,
            timed["e_dot"]["ms"] / dot_half, copy_bytes / 1e9, oh.numel(), n))
     x4_edges(inp.codes)
+    wgmma_edges(inp.codes)
 
     entries = []
     for name, (replaces, ks) in VARIANT_KERNELS.items():
@@ -740,7 +770,8 @@ def phase_variants():
              **{f: timed[ks[0]][f] for f in TIMED_FIELDS},
              "max_abs_err": max(timed[k]["max_abs_err"] for k in ks)}
         if len(ks) > 1:
-            e["variants"] = {k: {f: timed[k][f] for f in TIMED_FIELDS} for k in ks}
+            e["variants"] = {k: {f: timed[k][f] for f in TIMED_FIELDS + ("kernel_only_ms",)
+                                 if f in timed[k]} for k in ks}
         if "e_copy" in ks:
             # the tool's read-rate probe: its output needs only one-hot row 0,
             # and the kernel, like the TPU kernel, reads every row by design
@@ -755,8 +786,10 @@ def phase_variants():
     return entries, timed
 
 
-def x4_edge_guides(codes: torch.Tensor, n_real: int, rows, seed: int) -> torch.Tensor:
-    """(G, 128) block-layout 0/1 guides on codes' device: one-hots of all 32
+def x4_edge_guides(codes: torch.Tensor, n_real: int, rows, seed: int,
+                   onehot_T=codes_onehot) -> torch.Tensor:
+    """(G, 128) 0/1 guides on codes' device, in block layout (onehot_T =
+    codes_onehot) or interleaved (sv.interleaved_onehot): one-hots of all 32
     code rows of random target columns among the first n_real with 0..6
     substitutions, every fourth row random 0/1 bytes (1s in columns 24..31
     too), the last G // 16 rows zero padding; or "512 super rows", the
@@ -769,7 +802,7 @@ def x4_edge_guides(codes: torch.Tensor, n_real: int, rows, seed: int) -> torch.T
     k = torch.randint(0, 7, (n, 1), generator=gen, device=dev)
     sub = torch.rand((n, 32), generator=gen, device=dev).argsort(dim=1) < k
     delta = torch.randint(1, 4, (n, 32), generator=gen, device=dev)
-    guides = codes_onehot(torch.where(sub, (sel + delta) % 4, sel).to(torch.int8))
+    guides = onehot_T(torch.where(sub, (sel + delta) % 4, sel).to(torch.int8))
     dense = (torch.rand((n, OH_ROWS), generator=gen, device=dev) < 0.25).to(torch.int8)
     guides[3::4] = dense[3::4]
     guides[n - n // 16:] = 0
@@ -812,6 +845,67 @@ def x4_edges(codes: torch.Tensor) -> int:
     say("  v6_bf16out edges: (32, %d) with a PAD_CODE tail, G=%s, thr %s: %d "
         "bitwise-equal compares, one launch each"
         % (src.shape[1], "/".join(map(str, X4_ROWS)),
+           "/".join(map(str, THR_EDGES)), n_cmp))
+    return n_cmp
+
+
+def wgmma_edge_compares(codes: torch.Tensor, n_real: int, rows: int) -> int:
+    """X5 (at every X5_TILES) and X6 full and dot == their plain versions on
+    codes (real targets first, then PAD_CODE columns) and on two one-hots
+    of them, expand_onehot's and random 0/1 bytes with several 1s per group
+    of four rows, with interleaved x4_edge_guides(rows) at every THR_EDGES:
+    every byte 1 at thr <= 0, none past the largest count, one counted
+    launch per call. Returns the number of (thr, input) pairs at which
+    some but not all real targets hit."""
+    guides = x4_edge_guides(codes, n_real, rows, seed=rows, onehot_T=sv.interleaved_onehot)
+    n = codes.shape[1]
+    gen = torch.Generator(device=codes.device).manual_seed(rows)
+    dense = (torch.rand((OH_ROWS, n), generator=gen, device=codes.device) < 0.4).to(torch.int8)
+    onehots = {"expand_onehot": sv.expand_onehot(codes, 23), "random 0/1": dense}
+    tiles = [n + 1 if t == "n+1" else t for t in X5_TILES]
+    before = sv.v5_tile.launches, sv.expanded.launches
+    partial = 0
+
+    def held(got, want, what, thr, top):
+        max_abs_err(got, want, "%s G=%d thr=%d" % (what, rows, thr))
+        hits = int(got.sum())
+        if (thr <= 0 and hits != n) or (thr > top and hits):
+            raise AssertionError("%s G=%d thr=%d: %d of %d bytes set" % (what, rows, thr, hits, n))
+        return 0 < int(got[0, :n_real].sum()) < n_real
+
+    for thr in THR_EDGES:
+        want = sv.v5_tile_reference(codes, guides, thr)
+        for t in tiles:
+            partial += held(sv.v5_tile(codes, guides, thr, t), want, "v5_tile t_tile=%d" % t,
+                            thr, 32)
+        for name, oh in onehots.items():
+            partial += held(sv.expanded(oh, guides, thr, "full"),
+                            sv.expanded_reference(oh, guides, thr, "full"),
+                            "expanded full on %s" % name, thr, OH_ROWS)
+    for name, oh in onehots.items():
+        max_abs_err(sv.expanded(oh, guides, 0, "dot"), sv.expanded_reference(oh, guides, 0, "dot"),
+                    "expanded dot on %s G=%d" % (name, rows))
+    calls = (len(THR_EDGES) * len(tiles), len(THR_EDGES) * 2 + 2)
+    got = sv.v5_tile.launches - before[0], sv.expanded.launches - before[1]
+    if got != tuple(c * (DEVICE == "cuda") for c in calls):
+        raise AssertionError("G=%d: %s launches for %s calls" % (rows, got, calls))
+    return partial
+
+
+def wgmma_edges(codes: torch.Tensor) -> int:
+    """Phase 6's X5 and X6 edge cases on x4_edges' slice; returns the
+    number of compares."""
+    n_real = min(X4_EDGE_N, codes.shape[1])
+    src = torch.cat([codes[:, :n_real],
+                     torch.full((codes.shape[0], 1001), PAD_CODE, dtype=torch.int8,
+                                device=codes.device)], dim=1).contiguous()
+    partial = sum(wgmma_edge_compares(src, n_real, rows) for rows in WGMMA_ROWS)
+    if not partial:
+        raise AssertionError("v5_tile/expanded: no threshold at which some but not all hit")
+    n_cmp = len(WGMMA_ROWS) * (len(THR_EDGES) * (len(X5_TILES) + 2) + 2)
+    say("  v5_tile and expanded edges: (32, %d) with a PAD_CODE tail and two one-hots of it, "
+        "G=%s, t_tile %s, thr %s: %d bitwise-equal compares, one launch each"
+        % (src.shape[1], "/".join(map(str, WGMMA_ROWS)), "/".join(map(str, X5_TILES)),
            "/".join(map(str, THR_EDGES)), n_cmp))
     return n_cmp
 

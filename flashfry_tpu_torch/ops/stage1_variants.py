@@ -24,10 +24,12 @@ have column 4i+b = base b at position i (`interleaved_guides`), "block
 layout" column 32b+i (`scan_kernel.guide_block_layout`).
 
 Each wrapper takes a CPU tensor to its plain PyTorch version `*_reference`,
-and a CUDA tensor to its hand-written kernel in csrc/stage1_variants.cu (its
-header gives the design: X4 on the int8 tensor cores, the others on the
-CUDA cores), or raises; `<wrapper>.launches` counts kernel launches. Input checks, the chunked plain matmul and the launch are
-scan_kernel's, shared with stage 1.
+and a CUDA tensor to its hand-written kernel in csrc/stage1_variants.cu, or
+raises; `<wrapper>.launches` counts kernel launches. The kernels' header
+gives the designs: X4 on the int8 tensor cores with mma.sync, X5 and X6
+full/dot with wgmma (one kernel), X1-X3 and X6 copy on the CUDA cores.
+Input checks, the chunked plain matmul and the launch are scan_kernel's,
+shared with stage 1.
 """
 
 from __future__ import annotations
@@ -61,10 +63,8 @@ def expand_onehot(codes: torch.Tensor, L: int) -> torch.Tensor:
     4i+b = (code_i == b) for i < L, rows from 4L zero (the tool's `oh_np`).
 
     What it returns is what `expanded` takes: 0/1 bytes with at most one 1
-    in each group of four rows, so the kernel's mask arithmetic equals the
-    int8 product. `expanded` does not check that at each launch, since
-    reading the whole one-hot again would double the bytes its "copy" mode
-    measures."""
+    in each group of four rows. `expanded` checks nothing of it; its
+    tensor-core product is the int8 product of any bytes."""
     if codes.dtype != torch.int8 or codes.dim() != 2 or codes.shape[0] != CODE_ROWS:
         raise ValueError("codes must be (%d, N) int8, got %s %s"
                          % (CODE_ROWS, codes.dtype, tuple(codes.shape)))
@@ -205,7 +205,8 @@ def v6_bf16out(codes: torch.Tensor, guide_blk: torch.Tensor,
 def v5_tile(codes: torch.Tensor, guide_i8: torch.Tensor, thr: int,
             t_tile: int) -> torch.Tensor:
     """X5: (32, N) int8 codes, (G, 128) int8 0/1 interleaved guides ->
-    (1, N) int8 hit bytes; the kernel runs one block per t_tile targets."""
+    (1, N) int8 hit bytes. The wgmma kernel walks work units of t_tile
+    targets, 128 targets at a time; the bytes do not depend on t_tile."""
     check_inputs(codes, guide_i8, "v5_tile")
     _check_thr(thr, "v5_tile")
     if not 1 <= t_tile <= _INT32[1]:
@@ -218,10 +219,11 @@ def v5_tile(codes: torch.Tensor, guide_i8: torch.Tensor, thr: int,
 
 def expanded(onehot: torch.Tensor, guide_i8: torch.Tensor, thr: int,
              mode: str) -> torch.Tensor:
-    """X6: (128, N) int8 one-hot as `expand_onehot` builds it (not checked
-    here), (G, 128) int8 0/1 interleaved guides -> (1, N) int8: the hit byte
-    ("full"), guide 0's match count ("dot"), or one-hot row 0 ("copy",
-    which reads no guide)."""
+    """X6: (128, N) int8 one-hot as `expand_onehot` builds it, (G, 128)
+    int8 0/1 interleaved guides -> (1, N) int8: the hit byte ("full"), guide
+    0's match count as int8 ("dot"), both from the wgmma kernel's exact int8
+    product (any one-hot bytes), or one-hot row 0 ("copy", the CUDA-core
+    read-rate probe, which reads no guide)."""
     check_inputs(onehot, guide_i8, "expanded", rows=OH_ROWS)
     _check_thr(thr, "expanded")
     if mode not in MODES:

@@ -444,3 +444,342 @@ def test_v6_bf16out_is_integer_any_count_at_least_thr(thr):
             assert not bool(got.any())
         else:
             assert bool(got[0, :N_REAL].any()) and not bool(got[0, N_REAL:].any())
+
+
+# ---------------------------------------------------------------------------
+# A numpy model of X5's and X6's wgmma kernel (csrc/stage1_variants.cu
+# wgmma_kernel, csrc/wgmma_s8.cuh), step by step as the card runs it: the
+# guide stages and B tiles laid out chunk-major in shared memory and read
+# back through the no-swizzle K-major descriptor (lbo, sbo), the
+# m64n128k32 accumulators held by (warp, lane, register), the running-max
+# epilogue folded across lanes and warps, X5's __vcmpeq4 words, X6's 4x4
+# __byte_perm transpose, the t_tile work pieces and the OR over 1024-row
+# stages. Composed, it must give the plain versions' bytes (which the tests
+# above hold to the Pallas makers).
+
+WG_N, WG_M_TILE, WG_STAGE, WG_K_STEPS, WG_ACC = 128, 64, 1024, 4, 64
+
+
+def _bytes_of(w):
+    """uint32 words -> (..., 4) uint8, little-endian as the card stores them."""
+    w = np.ascontiguousarray(w, dtype="<u4")
+    return w.view(np.uint8).reshape(w.shape + (4,))
+
+
+def _word_of(b):
+    return np.ascontiguousarray(b, dtype=np.uint8).view("<u4")[..., 0]
+
+
+def byte_perm(x, y, sel):
+    """__byte_perm(x, y, sel): result byte i is byte (sel >> 4i) & 7 of the
+    eight bytes x (0..3), y (4..7)."""
+    x, y, sel = np.broadcast_arrays(np.asarray(x, np.uint32), np.asarray(y, np.uint32),
+                                    np.asarray(sel, np.uint32))
+    src = np.concatenate([_bytes_of(x), _bytes_of(y)], axis=-1)
+    idx = np.stack([(sel >> np.uint32(4 * i)) & np.uint32(7) for i in range(4)], axis=-1)
+    return _word_of(np.take_along_axis(src, idx.astype(np.intp), axis=-1))
+
+
+def vcmpeq4(a, b):
+    """__vcmpeq4: 0xFF in each byte where a's and b's bytes are equal."""
+    a, b = np.broadcast_arrays(np.asarray(a, np.uint32), np.asarray(b, np.uint32))
+    return _word_of(np.where(_bytes_of(a) == _bytes_of(b), 0xFF, 0).astype(np.uint8))
+
+
+def desc_read(smem, start, lbo, sbo, rows):
+    """The (rows, 32) s8 k-step operand a no-swizzle K-major descriptor
+    describes: 8-row x 16-byte core matrices, rows 16 bytes apart, the two
+    K halves lbo bytes apart, 8-row groups sbo bytes apart."""
+    r = np.arange(rows)[:, None]
+    k = np.arange(32)[None, :]
+    return smem[..., start + (r % 8) * 16 + (r // 8) * sbo + (k // 16) * lbo + k % 16]
+
+
+def chunk_major(rows_bytes, rows_pad):
+    """(rows, 128) bytes -> shared memory as the kernel writes them: row r's
+    16-byte chunk c at (c * rows_pad + r) * 16, padding rows zero."""
+    smem = np.zeros(rows_pad * 128, dtype=np.int8)
+    r, c = np.divmod(np.arange(rows_bytes.shape[0] * 8), 8)
+    for b in range(16):
+        smem[(c * rows_pad + r) * 16 + b] = rows_bytes[r, 16 * c + b]
+    return smem
+
+
+def operand(smem, rows_pad, m_tiles):
+    """(64 * m_tiles, 128) matrix that the descriptors of every m-tile and
+    k-step read from a chunk-major smem of rows_pad rows."""
+    return np.concatenate([
+        np.concatenate([desc_read(smem, (2 * s * rows_pad + WG_M_TILE * m) * 16,
+                                  rows_pad * 16, 128, WG_M_TILE)
+                        for s in range(WG_K_STEPS)], axis=-1)
+        for m in range(m_tiles)], axis=-2)
+
+
+def pieces(n, t_tile):
+    """The kernel's work pieces as (lo, hi): 128 targets of a t_tile unit
+    each, the last unit holding only those it needs."""
+    per_unit = -(-min(t_tile, n) // WG_N)
+    units = -(-n // t_tile)
+    count = (units - 1) * per_unit + -(-(n - (units - 1) * t_tile) // WG_N)
+    p = np.arange(count)
+    unit = p // per_unit
+    lo = unit * t_tile + (p - unit * per_unit) * WG_N
+    hi = np.minimum(np.minimum(lo + WG_N, unit * t_tile + t_tile), n)
+    return lo, hi
+
+
+def transpose_slots(lane):
+    """X6's store order: slot s of lane l stores target (s + rot) & 3 of its
+    four, rot = (l >> 1) & 3."""
+    return (np.arange(4)[None, :] + ((lane[:, None] >> 1) & 3)) & 3
+
+
+def load_words(src, rows, lo, hi, aligned, past):
+    """The words each thread reads from its rows[q]: targets 4l..4l+3 of
+    the piece (l its lane), as one word on the aligned path, else byte by
+    byte with `past` for targets at or past hi. -> [(P, 128) uint32]."""
+    n = src.shape[1]
+    lane = np.arange(WG_N) & 31
+    col0 = lo[:, None] + 4 * lane                                   # (P, 128)
+    vec = aligned & (col0 + 4 <= hi[:, None])
+    cols = col0[..., None] + np.arange(4)                            # (P, 128, 4)
+    keep = vec[..., None] | (cols < hi[:, None, None])
+    words = []
+    for q in range(rows.shape[0]):
+        got = src.view(np.uint8)[rows[q][None, :, None], np.minimum(cols, n - 1)]
+        words.append(_word_of(np.where(keep, got, np.uint8(past))))
+    return words
+
+
+def store_chunk(smem, c, k, w):
+    """Each thread stores words w[0..3] as target 4l + k's 16-byte chunk c."""
+    lane = np.arange(WG_N) & 31
+    for p in range(4):
+        for b in range(4):
+            smem[:, (c * WG_N + 4 * lane + k) * 16 + 4 * p + b] = _bytes_of(w[p])[..., b]
+
+
+def b_tiles_from_codes(codes, lo, hi):
+    """X5's B tiles: thread j builds target lo + j, position i's word byte
+    b = (code_i == b) by __vcmpeq4; PAD_CODE and targets past hi give zero
+    bytes."""
+    n = codes.shape[1]
+    tid = np.arange(WG_N)
+    col = lo[:, None] + tid
+    ok = col < hi[:, None]
+    code = np.where(ok[:, None, :], codes[:, np.minimum(col, n - 1)].transpose(1, 0, 2)
+                    .astype(np.uint8), PAD_CODE).astype(np.uint32)  # (P, 32, 128)
+    smem = np.zeros((lo.size, WG_N * 128), dtype=np.uint8)
+    for c in range(8):
+        for q in range(4):
+            w = vcmpeq4(code[:, 4 * c + q] * np.uint32(0x01010101), 0x03020100) \
+                & np.uint32(0x01010101)
+            for b in range(4):
+                smem[:, (c * WG_N + tid) * 16 + 4 * q + b] = _bytes_of(w)[..., b]
+    return smem.view(np.int8)
+
+
+def b_tiles_from_onehot(oh, lo, hi, aligned):
+    """X6's B tiles: for chunks c = 2w, 2w+1, lane l of warp w reads one
+    word of targets 4l..4l+3 from each of rows 16c..16c+15, transposes each
+    position's 4x4 bytes with __byte_perm and stores one 16-byte chunk per
+    target."""
+    tid = np.arange(WG_N)
+    lane, warp = tid & 31, tid >> 5
+    smem = np.zeros((lo.size, WG_N * 128), dtype=np.uint8)
+    slots = transpose_slots(lane)
+    for h in range(2):
+        c = 2 * warp + h
+        r = load_words(oh, np.stack([16 * c + q for q in range(16)]), lo, hi, aligned, 0)
+        for s in range(4):
+            k = slots[:, s]
+            sel = (k | (4 + k) << 4).astype(np.uint32)
+            w = [byte_perm(byte_perm(r[4 * p], r[4 * p + 1], sel),
+                           byte_perm(r[4 * p + 2], r[4 * p + 3], sel), 0x5410)
+                 for p in range(4)]
+            store_chunk(smem, c, k, w)
+    return smem.view(np.int8)
+
+
+def acc_owner():
+    """(row, column) of the m64n128 tile that register k of lane l of warp w
+    holds, as (4, 32, 64) index arrays: g = l / 4, t = l % 4, j = k / 4;
+    d[4j + 2v1 + v0] = (16w + g + 8v1, 8j + 2t + v0)."""
+    w, l, k = np.meshgrid(np.arange(4), np.arange(32), np.arange(WG_ACC), indexing="ij")
+    row = 16 * w + (l >> 2) + 8 * ((k >> 1) & 1)
+    col = 8 * (k >> 2) + 2 * (l & 3) + (k & 1)
+    return row, col
+
+
+def wgmma_model(src, guides, thrs, mode, t_tile=WG_N, source="codes"):
+    """Bytes of the wgmma kernel on the CPU: {thr: (n,) int8} for mode
+    "full" (at each thr), or {None: (n,) int8} for "dot"."""
+    n, G = src.shape[1], guides.shape[0]
+    lo, hi = pieces(n, t_tile)
+    if source == "codes":
+        b_smem = b_tiles_from_codes(src, lo, hi)
+    else:
+        b_smem = b_tiles_from_onehot(src, lo, hi, aligned=n % 4 == 0)
+    B = operand(b_smem, WG_N, WG_N // WG_M_TILE).astype(np.float32)  # (P, 128, 128)
+    row, col = acc_owner()
+    keys = thrs if mode == "full" else [None]
+    out = {key: np.zeros(n, dtype=np.int8) for key in keys}
+    tid = np.arange(WG_N)
+    cols = lo[:, None] + tid
+    written = cols < hi[:, None]
+    for r0 in range(0, G, WG_STAGE):
+        rows = min(WG_STAGE, G - r0)
+        rows64 = -(-rows // WG_M_TILE) * WG_M_TILE
+        A = operand(chunk_major(guides[r0:r0 + rows], rows64), rows64,
+                    rows64 // WG_M_TILE).astype(np.float32)
+        counts = np.matmul(A, B.transpose(0, 2, 1)).astype(np.int32)  # (P, rows64, 128)
+        # d[p, m, w, l, k]: register k of lane l of warp w after m-tile m
+        # (k-step 0 overwrites, the others add)
+        d = counts.reshape(lo.size, rows64 // WG_M_TILE, WG_M_TILE, WG_N)[:, :, row, col]
+        for key in keys:
+            if mode == "dot":
+                # warp 0's lanes g = 0 write guide 0's counts at m = 0 of stage 0
+                first = np.zeros((lo.size, WG_N), dtype=np.int8)
+                k = np.arange(WG_ACC)
+                sel = (k >> 1) & 1 == 0
+                first[:, col[0, :4][:, sel].ravel()] = \
+                    d[:, 0, 0, :4][:, :, sel].reshape(lo.size, -1).astype(np.int8)
+                byte = first if r0 == 0 else out[key][np.minimum(cols, n - 1)]
+            else:
+                # run[2j+v] = max(0, over m-tiles: d[4j+v], d[4j+2+v]), the
+                # __vimax3_s32 of each m-tile
+                run = np.stack([np.maximum(d[..., 0::4], d[..., 2::4]).max(axis=1),
+                                np.maximum(d[..., 1::4], d[..., 3::4]).max(axis=1)], axis=-1)
+                run = np.maximum(run.reshape(lo.size, 4, 32, WG_ACC // 2), 0)
+                bits = np.zeros((lo.size, 4, 32), dtype=np.uint32)
+                for k in range(WG_ACC // 2):
+                    bits |= (run[..., k] >= key).astype(np.uint32) << np.uint32(k)
+                # OR over g (the shuffles), lanes g = 0 store s_fold[w][t]
+                s_fold = np.bitwise_or.reduce(bits.reshape(lo.size, 4, 8, 4), axis=2)
+                lc = (tid >> 1) & 3
+                bit = 2 * (tid >> 3) + (tid & 1)
+                any_ = np.bitwise_or.reduce(s_fold[:, :, lc], axis=1)
+                hit = ((any_ >> bit.astype(np.uint32)) & np.uint32(1)).astype(np.int8)
+                prev = out[key][np.minimum(cols, n - 1)] if r0 else 0
+                byte = prev | hit
+            out[key][cols[written]] = byte[written]
+    return out
+
+
+def wg_guides(rows, codes, n_real, seed):
+    """(rows, 128) interleaved 0/1 guides: a third exact one-hots of target
+    columns (all 32 positions), a third with 1..6 substitutions, a third
+    random 0/1 bytes."""
+    rng = np.random.default_rng(seed)
+    sel = codes[:, rng.integers(0, n_real, size=rows)].T.astype(np.int64)
+    for j in range(rows // 3, rows):
+        pos = rng.choice(32, size=1 + j % 6, replace=False)
+        sel[j, pos] = (sel[j, pos] + int(rng.integers(1, 4))) % 4
+    guides = sv.interleaved_onehot(torch.from_numpy(sel)).numpy()
+    dense = (rng.random((rows, 128)) < 0.25).astype(np.int8)
+    guides[2 * rows // 3:] = dense[2 * rows // 3:]
+    return np.ascontiguousarray(guides)
+
+
+def wg_codes(n, seed):
+    """(32, n) Cas9NGG codes, the last n // 7 columns PAD_CODE."""
+    rng = np.random.default_rng(seed)
+    L = Cas9NGGParameterPack.total_scan_length
+    n_real = n - n // 7
+    targets = rng.integers(0, 1 << (2 * L), size=n_real, dtype=np.uint64)
+    return plane_codes(targets, L, n), n_real
+
+
+WG_ROWS = (1, 63, 64, 65, 1025)
+
+
+def test_wgmma_accumulator_mapping_covers_the_tile_once():
+    row, col = acc_owner()
+    seen = np.zeros((WG_M_TILE, WG_N), dtype=int)
+    np.add.at(seen, (row, col), 1)
+    assert (seen == 1).all()
+    # a warp holds rows 16w..16w+15 only; lanes of one t hold the same columns
+    assert all(set(row[w].ravel()) == set(range(16 * w, 16 * w + 16)) for w in range(4))
+    assert all((col[:, l] == col[0, l & 3]).all() for l in range(32))
+
+
+def test_wgmma_descriptor_reads_what_chunk_major_wrote():
+    rng = np.random.default_rng(1)
+    rows = rng.integers(-128, 128, size=(192, 128)).astype(np.int8)
+    assert np.array_equal(operand(chunk_major(rows, 192), 192, 3), rows)
+    # the same smem read with lbo and sbo swapped is another matrix
+    smem = chunk_major(rows, 192)
+    swapped = desc_read(smem, 0, 128, 192 * 16, 64)
+    assert np.array_equal(desc_read(smem, 0, 192 * 16, 128, 64), rows[:64, :32])
+    assert not np.array_equal(swapped, rows[:64, :32])
+
+
+def test_wgmma_byte_perm_transpose_and_conflict_free_stores():
+    """X6's 4x4 transpose gives each target's word, and the rotated store
+    order puts the 8 lanes of each store phase on 8 different 16-byte bank
+    groups."""
+    rng = np.random.default_rng(2)
+    r = rng.integers(0, 1 << 32, size=(4, 1000), dtype=np.uint64).astype(np.uint32)
+    for k in range(4):
+        sel = np.uint32(k | (4 + k) << 4)
+        w = byte_perm(byte_perm(r[0], r[1], sel), byte_perm(r[2], r[3], sel), 0x5410)
+        want = np.stack([_bytes_of(r[b])[:, k] for b in range(4)], axis=-1)
+        assert np.array_equal(_bytes_of(w), want), k
+    lane = np.arange(32)
+    slots = transpose_slots(lane)
+    assert (np.sort(slots, axis=1) == np.arange(4)).all()
+    for s in range(4):
+        unit = 4 * lane + slots[:, s]  # 16-byte units the lanes store
+        for phase in range(4):
+            assert len(set(unit[8 * phase:8 * phase + 8] % 8)) == 8, (s, phase)
+
+
+def test_wgmma_pieces_cover_every_target_once():
+    for n, t_tile in ((2345, 1), (2345, 100), (2345, 2048), (2345, 2346), (128, 128),
+                      (2344, 128), (5, (1 << 31) - 1)):
+        lo, hi = pieces(n, t_tile)
+        assert (hi > lo).all() and (hi - lo <= WG_N).all()
+        cover = np.zeros(n, dtype=int)
+        for a, b in zip(lo, hi):
+            cover[a:b] += 1
+            assert a // t_tile == (b - 1) // t_tile  # inside one unit
+        assert (cover == 1).all(), (n, t_tile)
+
+
+@pytest.mark.parametrize("t_tile", [1, 100, 2048, "n+1"])
+@pytest.mark.parametrize("G_rows", WG_ROWS)
+def test_wgmma_model_equals_v5_tile_reference(G_rows, t_tile):
+    n = 69 if t_tile == 1 else 2345  # not a multiple of 4 or of 128
+    codes, n_real = wg_codes(n, seed=G_rows)
+    guides = wg_guides(G_rows, codes, n_real, seed=G_rows + 1)
+    got = wgmma_model(codes, guides, THR_EDGES, "full",
+                      t_tile=n + 1 if t_tile == "n+1" else t_tile)
+    c, g = torch.from_numpy(codes), torch.from_numpy(guides)
+    partial = 0
+    for thr in THR_EDGES:
+        want = sv.v5_tile_reference(c, g, thr)[0].numpy()
+        assert np.array_equal(got[thr], want), (G_rows, t_tile, thr)
+        partial += 0 < int(want[:n_real].sum()) < n_real
+    assert partial or G_rows == 1
+
+
+@pytest.mark.parametrize("n", [2344, 2345])
+@pytest.mark.parametrize("mode", ["full", "dot"])
+@pytest.mark.parametrize("G_rows", WG_ROWS)
+def test_wgmma_model_equals_expanded_reference(G_rows, mode, n):
+    """X6 on the one-hot expand_onehot builds (n = 2345, PAD_CODE tail, the
+    byte-by-byte path), and on random 0/1 bytes with several 1s per group
+    of four rows (n = 2344, the word path)."""
+    codes, n_real = wg_codes(n, seed=7 * G_rows)
+    guides = wg_guides(G_rows, codes, n_real, seed=G_rows + 2)
+    if n % 4:
+        oh = sv.expand_onehot(torch.from_numpy(codes), 23).numpy()
+    else:
+        rng = np.random.default_rng(n + G_rows)
+        oh = (rng.random((128, n)) < 0.4).astype(np.int8)
+        assert (oh.reshape(32, 4, n).sum(axis=1) > 1).any()
+    got = wgmma_model(oh, guides, THR_EDGES, mode, source="onehot")
+    o, g = torch.from_numpy(oh), torch.from_numpy(guides)
+    for thr in THR_EDGES if mode == "full" else [None]:
+        want = sv.expanded_reference(o, g, 16 if thr is None else thr, mode)[0].numpy()
+        assert np.array_equal(got[thr], want), (G_rows, mode, n, thr)
