@@ -39,10 +39,12 @@ each of which fails the run on any mismatch:
      a ragged 2^20-target slice with a PAD_CODE tail at 1, 15, 16, 17, 100,
      1024, 1025 and 2048 guide rows and 512 super rows, each at the
      thresholds -2^31, -257, -1, 0, 1, 16, 32, 33, 256, 257 and 2^31-1, one
-     counted launch per call; and X5 and X6 full/dot (the wgmma kernel) on
-     the same slice, at 1, 63, 64, 65, 100, 1024, 1025 and 2048 guide rows
-     and the same thresholds, X5 at target tiles 1, 100, 2048, 8192 and one
-     past the slice, X6 on its expanded one-hot and on random 0/1 bytes;
+     counted launch per call; and X1, X2, X5 and X6 full/dot (the wgmma
+     kernel) on the same slice, at 1, 63, 64, 65, 100, 127, 128, 129, 1024,
+     1025 and 2048 guide rows and the same thresholds (X2 at the int16
+     edges -2^15, -257, -1, 0, 1, 16, 32, 33, 256, 257 and 2^15-1), X5 at
+     target tiles 1, 100, 2048, 8192 and one past the slice, X6 on its
+     expanded one-hot and on random 0/1 bytes;
   7. scoring: (a) the descriptor kernel K5 (`scoring/device.py`,
      csrc/descriptors.cu) bitwise against its plain version on off-targets
      with 0..9 planted mismatches, N of 1, 1000, 65,537 and 2^24, a 20-mer
@@ -66,13 +68,13 @@ pre-built (N, 128) one-hot ((N, 96) for K1; built before timing) by the
 guides, then the epilogue, in the plain version's column chunks; for X6
 copy, whose output is one-hot row 0, a clone of that row. For K1 it also
 times the launcher alone on pre-compacted guides (kernel_only_ms), so that
-the wrapper's own cost per call shows; so it does for X5 and X6 full/dot,
-whose wrappers check the guides' 0/1 bytes on every call. X6 copy is the tool's read-rate
-probe: its bound is of the N bytes its output needs, while the kernel, like
-the TPU kernel, reads the whole one-hot by design (its entry says so and
-carries the bytes/s). K5's bound is its bytes (12 read and 8 written per
-off-target, and the guide codes); no single PyTorch call computes it, so
-its library_ms is null.
+the wrapper's own cost per call shows; so it does for X1, X2, X5 and X6
+full/dot, whose wrappers check the guides' 0/1 bytes on every call. X6 copy
+is the tool's read-rate probe: its bound is of the N bytes its output
+needs, while the kernel, like the TPU kernel, reads the whole one-hot by
+design (its entry says so and carries the bytes/s). K5's bound is its
+bytes (12 read and 8 written per off-target, and the guide codes); no
+single PyTorch call computes it, so its library_ms is null.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
@@ -160,22 +162,27 @@ ELEVEN_METRICS = FIVE_METRICS + (",doench2014ontarget,moreno2015,bedannotator,"
                                  "reciprocalofftargets,folding,rank")
 K1_FIELDS = TIMED_FIELDS + ("bound_ms_128", "kernel_only_ms")
 # the wgmma kernel's tool keys, also timed through their launcher alone:
-# (wrapper, launcher, t_tile or mode)
-LAUNCHER_ONLY = {"5a": (sv.v5_tile, "ff_v5_tile_launch", 2048),
-                 "5b": (sv.v5_tile, "ff_v5_tile_launch", 8192),
-                 "e_full": (sv.expanded, "ff_expanded_launch", sv.MODES["full"]),
-                 "e_dot": (sv.expanded, "ff_expanded_launch", sv.MODES["dot"])}
+# (wrapper, launcher, the launcher's arguments after thr: t_tile or mode)
+LAUNCHER_ONLY = {"1": (sv.v1_gloop, "ff_v1_gloop_launch", ()),
+                 "3": (sv.v3_int16, "ff_v3_int16_launch", ()),
+                 "5a": (sv.v5_tile, "ff_v5_tile_launch", (2048,)),
+                 "5b": (sv.v5_tile, "ff_v5_tile_launch", (8192,)),
+                 "e_full": (sv.expanded, "ff_expanded_launch", (sv.MODES["full"],)),
+                 "e_dot": (sv.expanded, "ff_expanded_launch", (sv.MODES["dot"],))}
 # X4's edge cases (phase 6): guide rows around its 16-row m-tile and its
 # 1024-row stage, the tool's paired rows; int32 thresholds around bf16's
 # exact range and the counts' 0..32; the targets of the slice
 X4_ROWS = (1, 15, 16, 17, 100, 1024, 1025, 2048, "512 super rows")
 THR_EDGES = (-2 ** 31, -257, -1, 0, 1, 16, 32, 33, 256, 257, 2 ** 31 - 1)
 X4_EDGE_N = 1 << 20
-# X5's and X6's edge cases (phase 6, the same slice): guide rows around the
-# wgmma kernel's 64-row m-tile and its 1024-row stage; X5's target tiles
-# around its 128-target B tile ("n+1": one tile longer than the slice)
-WGMMA_ROWS = (1, 63, 64, 65, 100, 1024, 1025, 2048)
+# X1's, X2's, X5's and X6's edge cases (phase 6, the same slice): guide rows
+# around the wgmma kernel's 64-row m-tile, X1's 128-row tile and the
+# kernel's 1024-row stage; X5's target tiles around its 128-target B tile
+# ("n+1": one tile longer than the slice); X2's thresholds at the int16
+# edges, around the counts' 0..32
+WGMMA_ROWS = (1, 63, 64, 65, 100, 127, 128, 129, 1024, 1025, 2048)
 X5_TILES = (1, 100, 2048, 8192, "n+1")
+INT16_THR_EDGES = (-2 ** 15, -257, -1, 0, 1, 16, 32, 33, 256, 257, 2 ** 15 - 1)
 
 
 def say(*a) -> None:
@@ -736,7 +743,7 @@ def phase_variants():
                 wrapper, fn, extra = LAUNCHER_ONLY[v.key]
                 fn = getattr(_build.stage1_variants_library(), fn)
                 b["kernel_only_ms"] = kernel_only_ms(wrapper, fn, v.src, v.rows, inp.thr,
-                                                     v.plain(), extra)
+                                                     v.plain(), *extra)
             timed[v.key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
                             "max_abs_err": err, **b, "library_ms": lib}
             say("  %-32s kernel %.3f ms (%.3f, %.3f), plain %.3f ms (%.3f, "
@@ -767,7 +774,8 @@ def phase_variants():
     for name, (replaces, ks) in VARIANT_KERNELS.items():
         e = {"name": name, "route": "cuda", "source": VARIANTS_SRC,
              "replaces": replaces, "launches": launches[name],
-             **{f: timed[ks[0]][f] for f in TIMED_FIELDS},
+             **{f: timed[ks[0]][f] for f in TIMED_FIELDS + ("kernel_only_ms",)
+                if f in timed[ks[0]]},
              "max_abs_err": max(timed[k]["max_abs_err"] for k in ks)}
         if len(ks) > 1:
             e["variants"] = {k: {f: timed[k][f] for f in TIMED_FIELDS + ("kernel_only_ms",)
@@ -850,30 +858,36 @@ def x4_edges(codes: torch.Tensor) -> int:
 
 
 def wgmma_edge_compares(codes: torch.Tensor, n_real: int, rows: int) -> int:
-    """X5 (at every X5_TILES) and X6 full and dot == their plain versions on
-    codes (real targets first, then PAD_CODE columns) and on two one-hots
-    of them, expand_onehot's and random 0/1 bytes with several 1s per group
-    of four rows, with interleaved x4_edge_guides(rows) at every THR_EDGES:
-    every byte 1 at thr <= 0, none past the largest count, one counted
-    launch per call. Returns the number of (thr, input) pairs at which
-    some but not all real targets hit."""
+    """X1 and X2, X5 (at every X5_TILES) and X6 full and dot == their plain
+    versions on codes (real targets first, then PAD_CODE columns) and, for
+    X6, on two one-hots of them, expand_onehot's and random 0/1 bytes with
+    several 1s per group of four rows, with interleaved x4_edge_guides(rows)
+    at every THR_EDGES (X2 at INT16_THR_EDGES): every byte 1 at thr <= 0,
+    none past the largest count (X1 with fewer than 128 rows: every byte
+    -1 >= thr), one counted launch per call. Returns the number of (thr,
+    input) pairs at which some but not all real targets hit."""
     guides = x4_edge_guides(codes, n_real, rows, seed=rows, onehot_T=sv.interleaved_onehot)
     n = codes.shape[1]
     gen = torch.Generator(device=codes.device).manual_seed(rows)
     dense = (torch.rand((OH_ROWS, n), generator=gen, device=codes.device) < 0.4).to(torch.int8)
     onehots = {"expand_onehot": sv.expand_onehot(codes, 23), "random 0/1": dense}
     tiles = [n + 1 if t == "n+1" else t for t in X5_TILES]
-    before = sv.v5_tile.launches, sv.expanded.launches
+    kernels = (sv.v1_gloop, sv.v3_int16, sv.v5_tile, sv.expanded)
+    before = [k.launches for k in kernels]
     partial = 0
 
-    def held(got, want, what, thr, top):
+    def held(got, want, what, thr, top, floor=0):
         max_abs_err(got, want, "%s G=%d thr=%d" % (what, rows, thr))
         hits = int(got.sum())
-        if (thr <= 0 and hits != n) or (thr > top and hits):
+        if (thr <= floor and hits != n) or (thr > top and hits):
             raise AssertionError("%s G=%d thr=%d: %d of %d bytes set" % (what, rows, thr, hits, n))
         return 0 < int(got[0, :n_real].sum()) < n_real
 
+    # X1 reads only whole 128-row tiles; with none every byte is -1 >= thr
+    x1_floor, x1_top = (0, 32) if rows >= sv.G_TILE else (-1, -1)
     for thr in THR_EDGES:
+        partial += held(sv.v1_gloop(codes, guides, thr), sv.v1_gloop_reference(codes, guides, thr),
+                        "v1_gloop", thr, x1_top, x1_floor)
         want = sv.v5_tile_reference(codes, guides, thr)
         for t in tiles:
             partial += held(sv.v5_tile(codes, guides, thr, t), want, "v5_tile t_tile=%d" % t,
@@ -882,31 +896,37 @@ def wgmma_edge_compares(codes: torch.Tensor, n_real: int, rows: int) -> int:
             partial += held(sv.expanded(oh, guides, thr, "full"),
                             sv.expanded_reference(oh, guides, thr, "full"),
                             "expanded full on %s" % name, thr, OH_ROWS)
+    for thr in INT16_THR_EDGES:
+        partial += held(sv.v3_int16(codes, guides, thr), sv.v3_int16_reference(codes, guides, thr),
+                        "v3_int16", thr, 32)
     for name, oh in onehots.items():
         max_abs_err(sv.expanded(oh, guides, 0, "dot"), sv.expanded_reference(oh, guides, 0, "dot"),
                     "expanded dot on %s G=%d" % (name, rows))
-    calls = (len(THR_EDGES) * len(tiles), len(THR_EDGES) * 2 + 2)
-    got = sv.v5_tile.launches - before[0], sv.expanded.launches - before[1]
+    calls = (len(THR_EDGES), len(INT16_THR_EDGES), len(THR_EDGES) * len(tiles),
+             len(THR_EDGES) * 2 + 2)
+    got = tuple(k.launches - b for k, b in zip(kernels, before))
     if got != tuple(c * (DEVICE == "cuda") for c in calls):
         raise AssertionError("G=%d: %s launches for %s calls" % (rows, got, calls))
     return partial
 
 
 def wgmma_edges(codes: torch.Tensor) -> int:
-    """Phase 6's X5 and X6 edge cases on x4_edges' slice; returns the
-    number of compares."""
+    """Phase 6's X1, X2, X5 and X6 edge cases on x4_edges' slice; returns
+    the number of compares."""
     n_real = min(X4_EDGE_N, codes.shape[1])
     src = torch.cat([codes[:, :n_real],
                      torch.full((codes.shape[0], 1001), PAD_CODE, dtype=torch.int8,
                                 device=codes.device)], dim=1).contiguous()
     partial = sum(wgmma_edge_compares(src, n_real, rows) for rows in WGMMA_ROWS)
     if not partial:
-        raise AssertionError("v5_tile/expanded: no threshold at which some but not all hit")
-    n_cmp = len(WGMMA_ROWS) * (len(THR_EDGES) * (len(X5_TILES) + 2) + 2)
-    say("  v5_tile and expanded edges: (32, %d) with a PAD_CODE tail and two one-hots of it, "
-        "G=%s, t_tile %s, thr %s: %d bitwise-equal compares, one launch each"
+        raise AssertionError("v1_gloop/v3_int16/v5_tile/expanded: no threshold at which "
+                             "some but not all hit")
+    n_cmp = len(WGMMA_ROWS) * (len(THR_EDGES) * (len(X5_TILES) + 3) + len(INT16_THR_EDGES) + 2)
+    say("  v1_gloop, v3_int16, v5_tile and expanded edges: (32, %d) with a PAD_CODE tail and "
+        "two one-hots of it, G=%s, t_tile %s, thr %s (v3_int16: %s): %d bitwise-equal "
+        "compares, one launch each"
         % (src.shape[1], "/".join(map(str, WGMMA_ROWS)), "/".join(map(str, X5_TILES)),
-           "/".join(map(str, THR_EDGES)), n_cmp))
+           "/".join(map(str, THR_EDGES)), "/".join(map(str, INT16_THR_EDGES)), n_cmp))
     return n_cmp
 
 

@@ -3,14 +3,13 @@
 // Replaces six Pallas kernels of tools/experiment_stage1.py. Each launcher
 // takes the inputs of its TPU kernel and writes the same (1, n) int8 output,
 // bit for bit:
-//   X1 make_v1_gloop         ff_v1_gloop_launch          interleaved guides
-//                            staged through shared memory one 128-row tile
-//                            at a time, running max from -1, then >= thr;
-//                            rows past the last whole tile are never read
-//                            (the TPU kernel's range(g_rows // g_tile)), so
-//                            with fewer than 128 rows every byte is -1 >= thr
-//   X2 make_v3_int16         ff_v3_int16_launch          interleaved guides,
-//                            16-bit max of the match counts, then >= int16(thr)
+//   X1 make_v1_gloop         ff_v1_gloop_launch          X5's function over
+//                            the first g_rows // 128 * 128 guide rows (the
+//                            TPU kernel's range(g_rows // g_tile)), on
+//                            wgmma; with fewer than 128 rows its running max
+//                            stays -1 and every byte is -1 >= thr
+//   X2 make_v3_int16         ff_v3_int16_launch          X5's function at an
+//                            int16 threshold, on wgmma
 //   X3 make_v4_concat_onehot ff_v4_concat_onehot_launch  block-layout guides,
 //                            32-bit max, then >= thr
 //   X4 make_v6_bf16out       ff_v6_bf16out_launch        block-layout guides,
@@ -35,22 +34,16 @@
 // What bounds them on Hopper: the 2 x 128 x G x n int8 operations of the
 // one-hot product (1.11 ms at the tool's 2^23 targets x 1024 guides at the
 // published 1,979 TOP/s); the bytes (33 per target from codes, 129 from the
-// one-hot) are a small share. X1-X3 run the product on the CUDA cores, as
-// an integer-issue loop of one popcount per target-guide pair; X4 runs it on
-// the int8 tensor cores with mma.sync, X5 and X6 full/dot with wgmma, which
-// alone reaches the cores' full int8 rate.
+// one-hot) are a small share. X3 and X6 copy run on the CUDA cores; X4 runs
+// the product on the int8 tensor cores with mma.sync; X1, X2, X5 and X6
+// full/dot run it with wgmma, which alone reaches the cores' full int8 rate.
 //
-// Design of X1-X3 (CUDA cores): each thread owns a target column and
-// keeps its one-hot as four 32-bit masks (bit i of m_b: base i == b); each
-// guide is packed into four words in shared memory. A target has at most
-// one base per position, so the four AND-ed masks are disjoint and one
-// popcount of their OR is the int8 product of the TPU kernel. The variants
-// differ only where their TPU kernels differed: the guide layout the
-// packing reads, the epilogue (a max over all G, then the threshold; no
-// early exit) and the grid. X1 re-packs each
-// 128-row guide tile into shared memory for every pass over the block's
-// targets, as the TPU kernel sliced its guide block per tile; each thread
-// holds four targets, so a packed tile serves 1024 of them.
+// Design of X3 (CUDA cores): each thread owns a target column and keeps its
+// one-hot as four 32-bit masks (bit i of m_b: base i == b); each guide is
+// packed into four words in shared memory. A target has at most one base
+// per position, so the four AND-ed masks are disjoint and one popcount of
+// their OR is the int8 product of the TPU kernel; a 32-bit max over all G
+// (no early exit), then the threshold.
 //
 // Design of X4 (bf16out_kernel): stage1.cu's tensor-core design, with
 // mma.sync m16n8k32 s8 (guides as A, 16 rows per m-tile; targets as B, 8
@@ -88,7 +81,10 @@
 // tool's 1024 rows and 1.5 ms on its 512 super rows (PERF.md): 42% and 37%
 // of the bound, with 166 registers a thread and no spills.
 //
-// Design of X5 and X6 full/dot (wgmma_kernel, the helpers in wgmma_s8.cuh):
+// Design of X1, X2, X5 and X6 full/dot (wgmma_kernel, the helpers in
+// wgmma_s8.cuh): X1 and X2 compute X5's function on X5's inputs, so they run
+// X5's kernel at their TPU kernels' t_tile of 4096; what is theirs is in the
+// launchers below (X1's whole tiles, X2's int16 threshold). The kernel is
 // a persistent grid of one block per SM, three warpgroups a block. A = the
 // interleaved guides, already K-major (row-major, 128 bytes a row), staged
 // once per block with cp.async, at most 1024 rows (131,072 B) at a time
@@ -121,7 +117,7 @@
 //    descriptors are built once per stage and stepped by adding 16-byte
 //    units, and k-step 0 overwrites the accumulators (scale-d 0), so none is
 //    set beforehand.
-//  - The hit epilogue (X5, X6 full): each thread keeps the running max of
+//  - The hit epilogue (X1, X2, X5, X6 full): each thread keeps the running max of
 //    its two rows' counts per column held, one VIMNMX3 (__vimax3_s32, a
 //    Hopper instruction) per two accumulators, from 0 (counts are >= 0, so
 //    any thr <= 0 hits, as max(m) >= thr does); after the last m-tile it
@@ -166,7 +162,7 @@ constexpr int kThreads = 256;
 constexpr int kCodeRows = 32;
 constexpr int kOneHotRows = 128;
 constexpr int kGuideTile = 128;   // X1: the TPU kernel's g_tile
-constexpr int kGloopTargets = 4;  // X1: targets per thread
+constexpr long long kToolTile = 4096;  // X1, X2: the TPU kernels' t_tile
 // X4 on the tensor cores
 constexpr int kMmaThreads = 384;
 constexpr int kMmaWarps = kMmaThreads / 32;
@@ -187,54 +183,30 @@ constexpr int kBTile = ff_wgmma::kN * kOneHotRows;  // one B tile: 16,384 B
 // a warpgroup's fold words (4 warps x 4 lane columns) and dot bytes
 constexpr int kWgScratch = 16 * 4 + ff_wgmma::kN;
 
-enum Layout { kInterleaved = 0, kBlock = 1 };
 enum Mode { kFull = 0, kDot = 1, kCopy = 2 };
 enum Src { kCodes = 0, kOneHot = 1 };
 
-// Pack the (g_rows, 128) 0/1 guide bytes into s_guide as g_rows x {word b =
-// 0..3}, bit i of word b being the guide's byte for base b at position i.
-template <int kLayout>
+// Pack the (g_rows, 128) 0/1 block-layout guide bytes into s_guide as
+// g_rows x {word b = 0..3}, bit i of word b being the guide's byte for base
+// b at position i: word k covers columns [32k, 32k+32), guide k/4, base k%4
+// (stage1.cu)
 __device__ void pack_guides(const int8_t* __restrict__ guides, int g_rows,
                             uint4* s_guide) {
-  if (kLayout == kBlock) {
-    // word k covers columns [32k, 32k+32): guide k/4, base k%4 (stage1.cu)
-    uint32_t* s_words = reinterpret_cast<uint32_t*>(s_guide);
-    for (int k = threadIdx.x; k < g_rows * 4; k += blockDim.x) {
-      const uint4* src = reinterpret_cast<const uint4*>(guides) + 2 * k;
-      const uint4 a = src[0];
-      const uint4 b = src[1];
-      const uint32_t lanes[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-      uint32_t w = 0;
+  uint32_t* s_words = reinterpret_cast<uint32_t*>(s_guide);
+  for (int k = threadIdx.x; k < g_rows * 4; k += blockDim.x) {
+    const uint4* src = reinterpret_cast<const uint4*>(guides) + 2 * k;
+    const uint4 a = src[0];
+    const uint4 b = src[1];
+    const uint32_t lanes[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    uint32_t w = 0;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          w |= ((lanes[j] >> (8 * q)) & 0xFFu) ? (1u << (4 * j + q)) : 0u;
-        }
+      for (int q = 0; q < 4; ++q) {
+        w |= ((lanes[j] >> (8 * q)) & 0xFFu) ? (1u << (4 * j + q)) : 0u;
       }
-      s_words[k] = w;
     }
-  } else {
-    // 32-bit lane i of a row holds columns 4i..4i+3: its byte b is base b
-    // at position i
-    for (int g = threadIdx.x; g < g_rows; g += blockDim.x) {
-      const uint4* src = reinterpret_cast<const uint4*>(guides) + 8 * g;
-      uint32_t w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-      for (int v = 0; v < 8; ++v) {
-        const uint4 a = src[v];
-        const uint32_t lanes[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t bit = 1u << (4 * v + j);
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            w[b] |= ((lanes[j] >> (8 * b)) & 0xFFu) ? bit : 0u;
-          }
-        }
-      }
-      s_guide[g] = make_uint4(w[0], w[1], w[2], w[3]);
-    }
+    s_words[k] = w;
   }
   __syncthreads();
 }
@@ -262,76 +234,29 @@ __device__ __forceinline__ int matches(const Masks& k, const uint4 w) {
                 (k.m[3] & w.w));
 }
 
-// max over all g_rows guides of the match count, held in Acc (int16_t for
-// X2, int for the others), then the threshold in Acc: no early exit
-template <typename Acc>
+// max over all g_rows guides of the match count, then the threshold: no
+// early exit
 __device__ __forceinline__ int8_t max_hit(const Masks& k, const uint4* s_guide,
                                           int g_rows, int thr) {
-  const Acc t = static_cast<Acc>(thr);
-  Acc best = -1;
+  int best = -1;
   for (int g = 0; g < g_rows; ++g) {
-    const Acc c = static_cast<Acc>(matches(k, s_guide[g]));
+    const int c = matches(k, s_guide[g]);
     best = c > best ? c : best;
   }
-  return best >= t ? 1 : 0;
+  return best >= thr ? 1 : 0;
 }
 
-// X2 (Acc = int16_t, interleaved) and X3 (Acc = int, block layout):
-// persistent grid, the guide words packed once per resident block
-template <int kLayout, typename Acc>
+// X3: persistent grid, the guide words packed once per resident block
 __global__ void __launch_bounds__(kThreads)
 max_kernel(const int8_t* __restrict__ codes, long long n,
            const int8_t* __restrict__ guides, int g_rows, int thr,
            int8_t* __restrict__ out) {
   extern __shared__ uint4 s_guide[];
-  pack_guides<kLayout>(guides, g_rows, s_guide);
+  pack_guides(guides, g_rows, s_guide);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        t < n; t += stride) {
-    out[t] = max_hit<Acc>(code_masks(codes, n, t), s_guide, g_rows, thr);
-  }
-}
-
-// X1: persistent grid over passes of kGloopTargets x kThreads targets; in
-// each pass every whole 128-row guide tile is packed into shared memory and
-// folded into each target's running max. The pass loop's bound depends only
-// on blockIdx, so every thread of a block reaches each __syncthreads.
-__global__ void __launch_bounds__(kThreads)
-gloop_kernel(const int8_t* __restrict__ codes, long long n,
-             const int8_t* __restrict__ guides, int g_rows, int thr,
-             int8_t* __restrict__ out) {
-  __shared__ uint4 s_guide[kGuideTile];
-  const int n_tiles = g_rows / kGuideTile;
-  const long long per_pass = static_cast<long long>(kGloopTargets) * blockDim.x;
-  for (long long base = blockIdx.x * per_pass; base < n;
-       base += static_cast<long long>(gridDim.x) * per_pass) {
-    Masks k[kGloopTargets];
-    int best[kGloopTargets];
-#pragma unroll
-    for (int j = 0; j < kGloopTargets; ++j) {
-      const long long t = base + j * blockDim.x + threadIdx.x;
-      k[j] = t < n ? code_masks(codes, n, t) : Masks{{0u, 0u, 0u, 0u}};
-      best[j] = -1;
-    }
-    for (int tile = 0; tile < n_tiles; ++tile) {
-      __syncthreads();  // the previous tile is no longer read
-      pack_guides<kInterleaved>(
-          guides + static_cast<long long>(tile) * kGuideTile * kOneHotRows,
-          kGuideTile, s_guide);
-      for (int g = 0; g < kGuideTile; ++g) {
-        const uint4 w = s_guide[g];
-#pragma unroll
-        for (int j = 0; j < kGloopTargets; ++j) {
-          const int c = matches(k[j], w);
-          best[j] = c > best[j] ? c : best[j];
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kGloopTargets; ++j) {
-      const long long t = base + j * blockDim.x + threadIdx.x;
-      if (t < n) out[t] = best[j] >= thr ? 1 : 0;
-    }
+    out[t] = max_hit(code_masks(codes, n, t), s_guide, g_rows, thr);
   }
 }
 
@@ -470,7 +395,7 @@ bf16out_kernel(const int8_t* __restrict__ codes, long long n,
   }
 }
 
-// X5 and X6 full/dot on wgmma (see the header).
+// X1, X2, X5 and X6 full/dot on wgmma (see the header).
 __device__ __forceinline__ void wg_barrier(int wg) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(1 + wg), "n"(kWgThreads) : "memory");
 }
@@ -752,36 +677,20 @@ size_t guide_smem(int g_rows) { return static_cast<size_t>(g_rows) * sizeof(uint
 
 // Each launcher runs on `stream` and returns the cudaError_t of the launch
 // (0 on success). codes: (32, n) int8; onehot: (128, n) int8; guides:
-// (g_rows, 128) int8, 16-byte aligned, g_rows >= 1; out: (n,) int8. X2 and
-// X3 keep 16 bytes of packed words per guide row in the default 48 KB of
-// shared memory, so they take g_rows <= 3072; X1 packs one 128-row tile at
-// a time, and X4, X5 and X6 stage 1024 rows at a time in dynamic shared
-// memory, so they take any g_rows. The
-// wrappers cap g_rows at 2048 (ops/scan_kernel.py MAX_GUIDE_ROWS). The
+// (g_rows, 128) int8, 16-byte aligned, g_rows >= 1; out: (n,) int8. X3
+// keeps 16 bytes of packed words per guide row in the default 48 KB of
+// shared memory, so it takes g_rows <= 3072; X1, X2, X4, X5 and X6 stage
+// 1024 rows at a time in dynamic shared memory, so they take any g_rows.
+// The wrappers cap g_rows at 2048 (ops/scan_kernel.py MAX_GUIDE_ROWS). The
 // caller checks shapes, types, alignment, 0/1 guide bytes and the
 // thresholds' range.
 static_assert(kOneHotRows == 4 * kCodeRows, "one-hot is 4 x 32 rows");
 
-// any g_rows >= 1: rows past the last whole 128-row tile are not read
-extern "C" int ff_v1_gloop_launch(const void* codes, long long n,
-                                  const void* guides, int g_rows, int thr,
-                                  void* out, void* stream) {
-  return launch_persistent(gloop_kernel, codes, n, guides, g_rows, thr, out,
-                           stream, 0, static_cast<long long>(kGloopTargets) * kThreads);
-}
-
-extern "C" int ff_v3_int16_launch(const void* codes, long long n,
-                                  const void* guides, int g_rows, int thr,
-                                  void* out, void* stream) {
-  return launch_persistent(max_kernel<kInterleaved, int16_t>, codes, n, guides,
-                           g_rows, thr, out, stream, guide_smem(g_rows), kThreads);
-}
-
 extern "C" int ff_v4_concat_onehot_launch(const void* codes, long long n,
                                           const void* guides, int g_rows,
                                           int thr, void* out, void* stream) {
-  return launch_persistent(max_kernel<kBlock, int>, codes, n, guides, g_rows,
-                           thr, out, stream, guide_smem(g_rows), kThreads);
+  return launch_persistent(max_kernel, codes, n, guides, g_rows, thr, out, stream,
+                           guide_smem(g_rows), kThreads);
 }
 
 extern "C" int ff_v6_bf16out_launch(const void* codes, long long n,
@@ -805,8 +714,8 @@ extern "C" int ff_v6_bf16out_launch(const void* codes, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// X5 (codes, t_tile >= 1) and X6 full/dot (one-hot, t_tile = 128): the
-// persistent wgmma kernel, one block per SM
+// X1, X2 (codes, t_tile 4096), X5 (codes, t_tile >= 1) and X6 full/dot
+// (one-hot, t_tile = 128): the persistent wgmma kernel, one block per SM
 template <int kSrc, int kMode>
 int launch_wgmma(const void* src, long long n, const void* guides, int g_rows,
                  int thr, long long t_tile, void* out, void* stream) {
@@ -836,6 +745,31 @@ extern "C" int ff_v5_tile_launch(const void* codes, long long n,
                                  const void* guides, int g_rows, int thr,
                                  int t_tile, void* out, void* stream) {
   return launch_wgmma<kCodes, kFull>(codes, n, guides, g_rows, thr, t_tile, out, stream);
+}
+
+// any g_rows >= 1: only the first g_rows / 128 * 128 rows are read, so no
+// 64-row m-tile or 1024-row stage holds a row past them. With at least one
+// whole tile the counts are >= 0 and the kernel's max from 0 is X1's from
+// -1; with none, X1's max stays -1 and every byte is -1 >= thr.
+extern "C" int ff_v1_gloop_launch(const void* codes, long long n,
+                                  const void* guides, int g_rows, int thr,
+                                  void* out, void* stream) {
+  if (g_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return 0;
+  const int rows = g_rows / kGuideTile * kGuideTile;
+  if (rows == 0) {
+    return static_cast<int>(cudaMemsetAsync(out, -1 >= thr ? 1 : 0, static_cast<size_t>(n),
+                                            static_cast<cudaStream_t>(stream)));
+  }
+  return launch_wgmma<kCodes, kFull>(codes, n, guides, rows, thr, kToolTile, out, stream);
+}
+
+// thr in int16 range (the wrapper checks it): the counts are 0..32, so the
+// kernel's s32 test max >= thr is X2's any(m >= int16(thr))
+extern "C" int ff_v3_int16_launch(const void* codes, long long n,
+                                  const void* guides, int g_rows, int thr,
+                                  void* out, void* stream) {
+  return launch_wgmma<kCodes, kFull>(codes, n, guides, g_rows, thr, kToolTile, out, stream);
 }
 
 // mode 0 = full, 1 = dot, 2 = copy (guides unused)

@@ -1,7 +1,7 @@
-// Inline-PTX helpers of the int8 warpgroup tensor-core kernels (X5 and X6
-// in stage1_variants.cu): the shared-memory matrix descriptor, the fences,
-// and wgmma.mma_async m64n128k32 s8 x s8 -> s32 with both operands in
-// shared memory. sm_90a only.
+// Inline-PTX helpers of the int8 warpgroup tensor-core kernel (X1, X2, X5
+// and X6 in stage1_variants.cu): the shared-memory matrix descriptor, the
+// fences, and wgmma.mma_async m64n128k32 s8 x s8 -> s32 with both operands
+// in shared memory. sm_90a only.
 //
 // Layout the descriptor describes (no swizzle, K-major, which 8-bit
 // operands must be): a core matrix is 8 rows x 16 bytes, its rows 16 bytes

@@ -26,8 +26,8 @@ layout" column 32b+i (`scan_kernel.guide_block_layout`).
 Each wrapper takes a CPU tensor to its plain PyTorch version `*_reference`,
 and a CUDA tensor to its hand-written kernel in csrc/stage1_variants.cu, or
 raises; `<wrapper>.launches` counts kernel launches. The kernels' header
-gives the designs: X4 on the int8 tensor cores with mma.sync, X5 and X6
-full/dot with wgmma (one kernel), X1-X3 and X6 copy on the CUDA cores.
+gives the designs: X1, X2, X5 and X6 full/dot on the int8 tensor cores with
+wgmma (one kernel), X4 with mma.sync, X3 and X6 copy on the CUDA cores.
 Input checks, the chunked plain matmul and the launch are scan_kernel's,
 shared with stage 1.
 """
@@ -156,7 +156,9 @@ def _library():
 
 def v1_gloop(codes: torch.Tensor, guide_i8: torch.Tensor, thr: int) -> torch.Tensor:
     """X1: (32, N) int8 codes, (G, 128) int8 0/1 interleaved guides ->
-    (1, N) int8 hit bytes over the first G // 128 * 128 guide rows."""
+    (1, N) int8 hit bytes over the first G // 128 * 128 guide rows (X5's
+    wgmma kernel on them; with none, one memset of -1 >= thr, counted as
+    the launch)."""
     check_inputs(codes, guide_i8, "v1_gloop")
     _check_thr(thr, "v1_gloop")
     if codes.device.type == "cpu":
@@ -167,7 +169,8 @@ def v1_gloop(codes: torch.Tensor, guide_i8: torch.Tensor, thr: int) -> torch.Ten
 
 def v3_int16(codes: torch.Tensor, guide_i8: torch.Tensor, thr: int) -> torch.Tensor:
     """X2: (32, N) int8 codes, (G, 128) int8 0/1 interleaved guides ->
-    (1, N) int8 hit bytes, thr in int16 range."""
+    (1, N) int8 hit bytes, thr in int16 range, where X5's wgmma kernel's
+    32-bit test is the int16 one (the counts are 0..32)."""
     check_inputs(codes, guide_i8, "v3_int16")
     _check_thr(thr, "v3_int16", _INT16)
     if codes.device.type == "cpu":

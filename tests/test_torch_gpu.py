@@ -81,7 +81,8 @@ def test_stage1_kernel_equals_plain(cuda, G):
 def test_stage1_variant_kernels_equal_plain(cuda):
     """X1, X2, X3, X4 (on the rows and on their super rows), X5 (three
     tiles) and X6 (three modes) on a ragged width with a PAD_CODE tail, at
-    128 and 2048 guide rows, mm 0..5: bitwise equal."""
+    128 and 2048 guide rows, mm 0..5, and X1 and X2 at the wgmma kernel's
+    row edges (chip_smoke.WGMMA_ROWS): bitwise equal."""
     rng = np.random.default_rng(9)
     n_real, n = 150_001, 153_333
     targets = rng.integers(0, 1 << 46, size=n_real, dtype=np.uint64)
@@ -119,8 +120,20 @@ def test_stage1_variant_kernels_equal_plain(cuda):
         for mode in ("dot", "copy"):
             got = sv.expanded(onehot, gi8, 16, mode)
             assert torch.equal(got, sv.expanded_reference(onehot, gi8, 16, mode)), (G, mode)
+    for G in chip_smoke.WGMMA_ROWS:
+        guides = targets[rng.integers(0, n_real, size=G)]
+        oh, _, _ = guide_onehot_matrix(guides, Cas9NGGParameterPack, pad_to=G)
+        gi8 = sv.interleaved_guides(torch.from_numpy(oh).to(cuda), 23)
+        for thr in (20, 16):
+            for got, ref in ((sv.v1_gloop(codes, gi8, thr), sv.v1_gloop_reference(codes, gi8, thr)),
+                             (sv.v3_int16(codes, gi8, thr), sv.v3_int16_reference(codes, gi8, thr))):
+                torch.cuda.synchronize()
+                assert torch.equal(got, ref), (G, thr)
+                assert not bool(got[0, n_real:].any())
     assert hits > 0
-    assert [k.launches - b for k, b in zip(sv.KERNELS, before)] == [12, 12, 12, 24, 36, 16]
+    edges = 2 * len(chip_smoke.WGMMA_ROWS)
+    assert [k.launches - b for k, b in zip(sv.KERNELS, before)] == \
+        [12 + edges, 12 + edges, 12, 24, 36, 16]
 
 
 @pytest.mark.parametrize("G", chip_smoke.X4_ROWS)
@@ -153,10 +166,11 @@ def test_v5_tile_and_expanded_kernels_equal_plain_at_every_row_count_and_thr_edg
     assert chip_smoke.wgmma_edge_compares(codes, n_real, G) > 0
 
 
-@pytest.mark.parametrize("G", [64, 192, 1000])
+@pytest.mark.parametrize("G", sorted(set(chip_smoke.WGMMA_ROWS) | {192, 1000}))
 def test_v1_gloop_kernel_reads_only_whole_tiles(cuda, G):
-    """X1 with a ragged tail of guide rows (64: no whole tile, the max stays
-    -1) equals its plain version, at thresholds that hit and at -1."""
+    """X1 with a ragged tail of guide rows (fewer than 128: no whole tile,
+    the max stays -1) equals its plain version, at thresholds that hit and
+    at -1."""
     rng = np.random.default_rng(G)
     n = 70_001
     targets = rng.integers(0, 1 << 46, size=n, dtype=np.uint64)

@@ -447,15 +447,15 @@ def test_v6_bf16out_is_integer_any_count_at_least_thr(thr):
 
 
 # ---------------------------------------------------------------------------
-# A numpy model of X5's and X6's wgmma kernel (csrc/stage1_variants.cu
-# wgmma_kernel, csrc/wgmma_s8.cuh), step by step as the card runs it: the
-# guide stages and B tiles laid out chunk-major in shared memory and read
-# back through the no-swizzle K-major descriptor (lbo, sbo), the
-# m64n128k32 accumulators held by (warp, lane, register), the running-max
-# epilogue folded across lanes and warps, X5's __vcmpeq4 words, X6's 4x4
-# __byte_perm transpose, the t_tile work pieces and the OR over 1024-row
-# stages. Composed, it must give the plain versions' bytes (which the tests
-# above hold to the Pallas makers).
+# A numpy model of the wgmma kernel of X1, X2, X5 and X6
+# (csrc/stage1_variants.cu wgmma_kernel, csrc/wgmma_s8.cuh), step by step
+# as the card runs it: the guide stages and B tiles laid out chunk-major in
+# shared memory and read back through the no-swizzle K-major descriptor
+# (lbo, sbo), the m64n128k32 accumulators held by (warp, lane, register),
+# the running-max epilogue folded across lanes and warps, X5's __vcmpeq4
+# words, X6's 4x4 __byte_perm transpose, the t_tile work pieces and the OR
+# over 1024-row stages. Composed, it must give the plain versions' bytes
+# (which the tests above hold to the Pallas makers).
 
 WG_N, WG_M_TILE, WG_STAGE, WG_K_STEPS, WG_ACC = 128, 64, 1024, 4, 64
 
@@ -783,3 +783,68 @@ def test_wgmma_model_equals_expanded_reference(G_rows, mode, n):
     for thr in THR_EDGES if mode == "full" else [None]:
         want = sv.expanded_reference(o, g, 16 if thr is None else thr, mode)[0].numpy()
         assert np.array_equal(got[thr], want), (G_rows, mode, n, thr)
+
+
+# X1 and X2 on the same kernel: their launchers run it at their TPU kernels'
+# t_tile of 4096, X1 on the whole 128-row tiles only (one memset of
+# -1 >= thr when there is none), X2 at any int16 threshold.
+
+TOOL_TILE = 4096
+X1_ROWS = (1, 64, 127, 128, 129, 192, 1025)
+X2_ROWS = (1, 65, 1025)
+INT16_THR_EDGES = (-2 ** 15, -257, -1, 0, 1, 16, 32, 33, 256, 257, 2 ** 15 - 1)
+
+
+def launcher_model(variant, codes, guides, thrs):
+    """Bytes of ff_v1_gloop_launch / ff_v3_int16_launch: {thr: (n,) int8}."""
+    if variant == "v1_gloop":
+        rows = guides.shape[0] // sv.G_TILE * sv.G_TILE
+        if rows == 0:
+            return {thr: np.full(codes.shape[1], int(-1 >= thr), dtype=np.int8) for thr in thrs}
+        guides = guides[:rows]
+    return wgmma_model(codes, guides, thrs, "full", t_tile=TOOL_TILE)
+
+
+@pytest.mark.parametrize("G_rows", X1_ROWS)
+def test_wgmma_model_equals_v1_gloop_reference(G_rows):
+    """X1 past one 4096-target unit: rows past the last whole 128-row tile
+    hold exact one-hots of targets (count 32), and neither the launcher nor
+    the plain version reads them; with fewer than 128 rows every byte is
+    -1 >= thr."""
+    n = TOOL_TILE + 2345
+    codes, n_real = wg_codes(n, seed=11 * G_rows)
+    guides = wg_guides(G_rows, codes, n_real, seed=G_rows + 3)
+    whole = G_rows // sv.G_TILE * sv.G_TILE
+    cols = np.random.default_rng(G_rows).integers(0, n_real, size=G_rows - whole)
+    guides[whole:] = sv.interleaved_onehot(torch.from_numpy(codes[:, cols].T.copy())).numpy()
+    got = launcher_model("v1_gloop", codes, guides, THR_EDGES)
+    c, g = torch.from_numpy(codes), torch.from_numpy(guides)
+    for thr in THR_EDGES:
+        want = sv.v1_gloop_reference(c, g, thr)[0].numpy()
+        assert np.array_equal(got[thr], want), (G_rows, thr)
+        if whole == 0:
+            assert (want == int(-1 >= thr)).all(), thr
+    if whole < G_rows:
+        every_row = sv.v5_tile_reference(c, g, 32)[0].numpy()
+        assert int(every_row.sum()) > int(got[32].sum()), G_rows
+
+
+@pytest.mark.parametrize("G_rows", X2_ROWS)
+def test_wgmma_model_equals_v3_int16_reference(G_rows):
+    """X2 at the int16 threshold edges: the kernel's 32-bit max >= thr is
+    the int16 any(m >= thr), since the counts are 0..32."""
+    n = TOOL_TILE + 2345
+    codes, n_real = wg_codes(n, seed=13 * G_rows)
+    guides = wg_guides(G_rows, codes, n_real, seed=G_rows + 4)
+    got = launcher_model("v3_int16", codes, guides, INT16_THR_EDGES)
+    c, g = torch.from_numpy(codes), torch.from_numpy(guides)
+    partial = 0
+    for thr in INT16_THR_EDGES:
+        want = sv.v3_int16_reference(c, g, thr)[0].numpy()
+        assert np.array_equal(got[thr], want), (G_rows, thr)
+        if thr <= 0:
+            assert want.all(), thr
+        elif thr > 32:
+            assert not want.any(), thr
+        partial += 0 < int(want[:n_real].sum()) < n_real
+    assert partial or G_rows == 1
