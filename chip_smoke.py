@@ -39,12 +39,12 @@ each of which fails the run on any mismatch:
      a ragged 2^20-target slice with a PAD_CODE tail at 1, 15, 16, 17, 100,
      1024, 1025 and 2048 guide rows and 512 super rows, each at the
      thresholds -2^31, -257, -1, 0, 1, 16, 32, 33, 256, 257 and 2^31-1, one
-     counted launch per call; and X1, X2, X5 and X6 full/dot (the wgmma
+     counted launch per call; and X1, X2, X3, X5 and X6 full/dot (the wgmma
      kernel) on the same slice, at 1, 63, 64, 65, 100, 127, 128, 129, 1024,
      1025 and 2048 guide rows and the same thresholds (X2 at the int16
-     edges -2^15, -257, -1, 0, 1, 16, 32, 33, 256, 257 and 2^15-1), X5 at
-     target tiles 1, 100, 2048, 8192 and one past the slice, X6 on its
-     expanded one-hot and on random 0/1 bytes;
+     edges -2^15, -257, -1, 0, 1, 16, 32, 33, 256, 257 and 2^15-1), X3 on
+     block-layout guides, X5 at target tiles 1, 100, 2048, 8192 and one
+     past the slice, X6 on its expanded one-hot and on random 0/1 bytes;
   7. scoring: (a) the descriptor kernel K5 (`scoring/device.py`,
      csrc/descriptors.cu) bitwise against its plain version on off-targets
      with 0..9 planted mismatches, N of 1, 1000, 65,537 and 2^24, a 20-mer
@@ -59,22 +59,24 @@ each of which fails the run on any mismatch:
 
 Beside each kernel's time the script computes its bound, the larger of its
 int8 operations (the one-hot product over the columns it needs: 2 x 96 x G
-x N for K1, whose guides have no base past position 23; 2 x 128 x G x N,
-as the TPU kernel computes it, for X1-X6, with K1's 128-column figure
-beside its own as bound_ms_128) over the H100's published 1,979 TOP/s and
-the bytes the function needs (each input read once, each output written
-once) over 3.35 TB/s, and times the library call: torch._int_mm of a
-pre-built (N, 128) one-hot ((N, 96) for K1; built before timing) by the
-guides, then the epilogue, in the plain version's column chunks; for X6
-copy, whose output is one-hot row 0, a clone of that row. For K1 it also
-times the launcher alone on pre-compacted guides (kernel_only_ms), so that
-the wrapper's own cost per call shows; so it does for X1, X2, X5 and X6
-full/dot, whose wrappers check the guides' 0/1 bytes on every call. X6 copy
-is the tool's read-rate probe: its bound is of the N bytes its output
-needs, while the kernel, like the TPU kernel, reads the whole one-hot by
-design (its entry says so and carries the bytes/s). K5's bound is its
-bytes (12 read and 8 written per off-target, and the guide codes); no
-single PyTorch call computes it, so its library_ms is null.
+x N for K1, whose guides have no base past position 23; 2 x 128 x G x N, as
+the TPU kernel computes it, for X1-X6, with K1's 128-column figure beside
+its own as bound_ms_128) over the H100's published 1,979 TOP/s and the
+bytes the function needs (each input read once, each output written once)
+over 3.35 TB/s, and times the library call: torch._int_mm of a pre-built
+(N, 128) one-hot ((N, 96) for K1; built before timing) by the guides, then
+the epilogue, in the plain version's column chunks; for X6 copy, whose
+output is one-hot row 0, a clone of that row. For K1 it also times the
+launcher alone on pre-compacted guides (kernel_only_ms), so that the
+wrapper's own cost per call shows; so it does for X1, X2, X3, X5 and X6
+full/dot, whose wrappers check the guides' 0/1 bytes on every call (X3's
+also permutes its guides to interleaved order, and its launcher alone is
+X5's at t_tile 4096 on guides permuted beforehand). X6 copy is the tool's
+read-rate probe: its bound is of the N bytes its output needs, while the
+kernel, like the TPU kernel, reads the whole one-hot by design (its entry
+says so and carries the bytes/s). K5's bound is its bytes (12 read and 8
+written per off-target, and the guide codes); no single PyTorch call
+computes it, so its library_ms is null.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
@@ -162,9 +164,11 @@ ELEVEN_METRICS = FIVE_METRICS + (",doench2014ontarget,moreno2015,bedannotator,"
                                  "reciprocalofftargets,folding,rank")
 K1_FIELDS = TIMED_FIELDS + ("bound_ms_128", "kernel_only_ms")
 # the wgmma kernel's tool keys, also timed through their launcher alone:
-# (wrapper, launcher, the launcher's arguments after thr: t_tile or mode)
+# (wrapper, launcher, the launcher's arguments after thr: t_tile or mode);
+# X3's launcher takes its guides permuted to interleaved order
 LAUNCHER_ONLY = {"1": (sv.v1_gloop, "ff_v1_gloop_launch", ()),
                  "3": (sv.v3_int16, "ff_v3_int16_launch", ()),
+                 "4": (sv.v4_concat_onehot, "ff_v5_tile_launch", (sv.X3_T_TILE,)),
                  "5a": (sv.v5_tile, "ff_v5_tile_launch", (2048,)),
                  "5b": (sv.v5_tile, "ff_v5_tile_launch", (8192,)),
                  "e_full": (sv.expanded, "ff_expanded_launch", (sv.MODES["full"],)),
@@ -175,8 +179,8 @@ LAUNCHER_ONLY = {"1": (sv.v1_gloop, "ff_v1_gloop_launch", ()),
 X4_ROWS = (1, 15, 16, 17, 100, 1024, 1025, 2048, "512 super rows")
 THR_EDGES = (-2 ** 31, -257, -1, 0, 1, 16, 32, 33, 256, 257, 2 ** 31 - 1)
 X4_EDGE_N = 1 << 20
-# X1's, X2's, X5's and X6's edge cases (phase 6, the same slice): guide rows
-# around the wgmma kernel's 64-row m-tile, X1's 128-row tile and the
+# X1's, X2's, X3's, X5's and X6's edge cases (phase 6, the same slice): guide
+# rows around the wgmma kernel's 64-row m-tile, X1's 128-row tile and the
 # kernel's 1024-row stage; X5's target tiles around its 128-target B tile
 # ("n+1": one tile longer than the slice); X2's thresholds at the int16
 # edges, around the counts' 0..32
@@ -742,7 +746,8 @@ def phase_variants():
             if v.key in LAUNCHER_ONLY:
                 wrapper, fn, extra = LAUNCHER_ONLY[v.key]
                 fn = getattr(_build.stage1_variants_library(), fn)
-                b["kernel_only_ms"] = kernel_only_ms(wrapper, fn, v.src, v.rows, inp.thr,
+                rows = sv.interleaved_from_block(v.rows) if v.key == "4" else v.rows
+                b["kernel_only_ms"] = kernel_only_ms(wrapper, fn, v.src, rows, inp.thr,
                                                      v.plain(), *extra)
             timed[v.key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
                             "max_abs_err": err, **b, "library_ms": lib}
@@ -858,21 +863,23 @@ def x4_edges(codes: torch.Tensor) -> int:
 
 
 def wgmma_edge_compares(codes: torch.Tensor, n_real: int, rows: int) -> int:
-    """X1 and X2, X5 (at every X5_TILES) and X6 full and dot == their plain
-    versions on codes (real targets first, then PAD_CODE columns) and, for
-    X6, on two one-hots of them, expand_onehot's and random 0/1 bytes with
-    several 1s per group of four rows, with interleaved x4_edge_guides(rows)
-    at every THR_EDGES (X2 at INT16_THR_EDGES): every byte 1 at thr <= 0,
-    none past the largest count (X1 with fewer than 128 rows: every byte
-    -1 >= thr), one counted launch per call. Returns the number of (thr,
-    input) pairs at which some but not all real targets hit."""
+    """X1 and X2, X3, X5 (at every X5_TILES) and X6 full and dot == their
+    plain versions on codes (real targets first, then PAD_CODE columns)
+    and, for X6, on two one-hots of them, expand_onehot's and random 0/1
+    bytes with several 1s per group of four rows, with interleaved
+    x4_edge_guides(rows) (X3: in block layout) at every THR_EDGES (X2 at
+    INT16_THR_EDGES): every byte 1 at thr <= 0, none past the largest
+    count (X1 with fewer than 128 rows: every byte -1 >= thr), one counted
+    launch per call. Returns the number of (thr, input) pairs at which some
+    but not all real targets hit."""
     guides = x4_edge_guides(codes, n_real, rows, seed=rows, onehot_T=sv.interleaved_onehot)
+    blk = x4_edge_guides(codes, n_real, rows, seed=rows)
     n = codes.shape[1]
     gen = torch.Generator(device=codes.device).manual_seed(rows)
     dense = (torch.rand((OH_ROWS, n), generator=gen, device=codes.device) < 0.4).to(torch.int8)
     onehots = {"expand_onehot": sv.expand_onehot(codes, 23), "random 0/1": dense}
     tiles = [n + 1 if t == "n+1" else t for t in X5_TILES]
-    kernels = (sv.v1_gloop, sv.v3_int16, sv.v5_tile, sv.expanded)
+    kernels = (sv.v1_gloop, sv.v3_int16, sv.v4_concat_onehot, sv.v5_tile, sv.expanded)
     before = [k.launches for k in kernels]
     partial = 0
 
@@ -888,6 +895,9 @@ def wgmma_edge_compares(codes: torch.Tensor, n_real: int, rows: int) -> int:
     for thr in THR_EDGES:
         partial += held(sv.v1_gloop(codes, guides, thr), sv.v1_gloop_reference(codes, guides, thr),
                         "v1_gloop", thr, x1_top, x1_floor)
+        partial += held(sv.v4_concat_onehot(codes, blk, thr),
+                        sv.v4_concat_onehot_reference(codes, blk, thr), "v4_concat_onehot",
+                        thr, 32)
         want = sv.v5_tile_reference(codes, guides, thr)
         for t in tiles:
             partial += held(sv.v5_tile(codes, guides, thr, t), want, "v5_tile t_tile=%d" % t,
@@ -902,8 +912,8 @@ def wgmma_edge_compares(codes: torch.Tensor, n_real: int, rows: int) -> int:
     for name, oh in onehots.items():
         max_abs_err(sv.expanded(oh, guides, 0, "dot"), sv.expanded_reference(oh, guides, 0, "dot"),
                     "expanded dot on %s G=%d" % (name, rows))
-    calls = (len(THR_EDGES), len(INT16_THR_EDGES), len(THR_EDGES) * len(tiles),
-             len(THR_EDGES) * 2 + 2)
+    calls = (len(THR_EDGES), len(INT16_THR_EDGES), len(THR_EDGES),
+             len(THR_EDGES) * len(tiles), len(THR_EDGES) * 2 + 2)
     got = tuple(k.launches - b for k, b in zip(kernels, before))
     if got != tuple(c * (DEVICE == "cuda") for c in calls):
         raise AssertionError("G=%d: %s launches for %s calls" % (rows, got, calls))
@@ -911,20 +921,20 @@ def wgmma_edge_compares(codes: torch.Tensor, n_real: int, rows: int) -> int:
 
 
 def wgmma_edges(codes: torch.Tensor) -> int:
-    """Phase 6's X1, X2, X5 and X6 edge cases on x4_edges' slice; returns
-    the number of compares."""
+    """Phase 6's X1, X2, X3, X5 and X6 edge cases on x4_edges' slice;
+    returns the number of compares."""
     n_real = min(X4_EDGE_N, codes.shape[1])
     src = torch.cat([codes[:, :n_real],
                      torch.full((codes.shape[0], 1001), PAD_CODE, dtype=torch.int8,
                                 device=codes.device)], dim=1).contiguous()
     partial = sum(wgmma_edge_compares(src, n_real, rows) for rows in WGMMA_ROWS)
     if not partial:
-        raise AssertionError("v1_gloop/v3_int16/v5_tile/expanded: no threshold at which "
-                             "some but not all hit")
-    n_cmp = len(WGMMA_ROWS) * (len(THR_EDGES) * (len(X5_TILES) + 3) + len(INT16_THR_EDGES) + 2)
-    say("  v1_gloop, v3_int16, v5_tile and expanded edges: (32, %d) with a PAD_CODE tail and "
-        "two one-hots of it, G=%s, t_tile %s, thr %s (v3_int16: %s): %d bitwise-equal "
-        "compares, one launch each"
+        raise AssertionError("v1_gloop/v3_int16/v4_concat_onehot/v5_tile/expanded: no "
+                             "threshold at which some but not all hit")
+    n_cmp = len(WGMMA_ROWS) * (len(THR_EDGES) * (len(X5_TILES) + 4) + len(INT16_THR_EDGES) + 2)
+    say("  v1_gloop, v3_int16, v4_concat_onehot, v5_tile and expanded edges: (32, %d) with a "
+        "PAD_CODE tail and two one-hots of it, G=%s, t_tile %s, thr %s (v3_int16: %s): %d "
+        "bitwise-equal compares, one launch each"
         % (src.shape[1], "/".join(map(str, WGMMA_ROWS)), "/".join(map(str, X5_TILES)),
            "/".join(map(str, THR_EDGES)), "/".join(map(str, INT16_THR_EDGES)), n_cmp))
     return n_cmp

@@ -1,8 +1,8 @@
 // The stage-1 variants of the experiment tool, one hit byte per target.
 //
 // Replaces six Pallas kernels of tools/experiment_stage1.py. Each launcher
-// takes the inputs of its TPU kernel and writes the same (1, n) int8 output,
-// bit for bit:
+// (X3's through its wrapper) takes the inputs of its TPU kernel and writes
+// the same (1, n) int8 output, bit for bit:
 //   X1 make_v1_gloop         ff_v1_gloop_launch          X5's function over
 //                            the first g_rows // 128 * 128 guide rows (the
 //                            TPU kernel's range(g_rows // g_tile)), on
@@ -10,14 +10,16 @@
 //                            stays -1 and every byte is -1 >= thr
 //   X2 make_v3_int16         ff_v3_int16_launch          X5's function at an
 //                            int16 threshold, on wgmma
-//   X3 make_v4_concat_onehot ff_v4_concat_onehot_launch  block-layout guides,
-//                            32-bit max, then >= thr
+//   X3 make_v4_concat_onehot ff_v5_tile_launch at t_tile 4096 on the
+//                            block-layout guides that the wrapper permutes
+//                            to interleaved order (X5's function), on wgmma
 //   X4 make_v6_bf16out       ff_v6_bf16out_launch        block-layout guides,
 //                            the bf16 max of the counts >= bf16(thr), on the
 //                            int8 tensor cores
-//   X5 make_v5_tile          ff_v5_tile_launch           X3's epilogue on
-//                            interleaved guides, in work units of t_tile
-//                            targets, on the int8 tensor cores (wgmma)
+//   X5 make_v5_tile          ff_v5_tile_launch           interleaved guides,
+//                            32-bit max of the counts >= thr, in work units
+//                            of t_tile targets, on the int8 tensor cores
+//                            (wgmma)
 //   X6 make_expanded         ff_expanded_launch          a pre-expanded
 //                            (128, n) one-hot in place of the codes; mode
 //                            full = hit byte, dot = guide 0's match count
@@ -34,16 +36,9 @@
 // What bounds them on Hopper: the 2 x 128 x G x n int8 operations of the
 // one-hot product (1.11 ms at the tool's 2^23 targets x 1024 guides at the
 // published 1,979 TOP/s); the bytes (33 per target from codes, 129 from the
-// one-hot) are a small share. X3 and X6 copy run on the CUDA cores; X4 runs
-// the product on the int8 tensor cores with mma.sync; X1, X2, X5 and X6
+// one-hot) are a small share. X6 copy runs on the CUDA cores; X4 runs the
+// product on the int8 tensor cores with mma.sync; X1, X2, X3, X5 and X6
 // full/dot run it with wgmma, which alone reaches the cores' full int8 rate.
-//
-// Design of X3 (CUDA cores): each thread owns a target column and keeps its
-// one-hot as four 32-bit masks (bit i of m_b: base i == b); each guide is
-// packed into four words in shared memory. A target has at most one base
-// per position, so the four AND-ed masks are disjoint and one popcount of
-// their OR is the int8 product of the TPU kernel; a 32-bit max over all G
-// (no early exit), then the threshold.
 //
 // Design of X4 (bf16out_kernel): stage1.cu's tensor-core design, with
 // mma.sync m16n8k32 s8 (guides as A, 16 rows per m-tile; targets as B, 8
@@ -81,23 +76,30 @@
 // tool's 1024 rows and 1.5 ms on its 512 super rows (PERF.md): 42% and 37%
 // of the bound, with 166 registers a thread and no spills.
 //
-// Design of X1, X2, X5 and X6 full/dot (wgmma_kernel, the helpers in
-// wgmma_s8.cuh): X1 and X2 compute X5's function on X5's inputs, so they run
-// X5's kernel at their TPU kernels' t_tile of 4096; what is theirs is in the
-// launchers below (X1's whole tiles, X2's int16 threshold). The kernel is
-// a persistent grid of one block per SM, three warpgroups a block. A = the
-// interleaved guides, already K-major (row-major, 128 bytes a row), staged
-// once per block with cp.async, at most 1024 rows (131,072 B) at a time
-// and zero-padded to the 64-row m-tile, as X4 stages; B = one tile of 128
-// targets x 128 one-hot bytes, K-major, that each warpgroup builds itself,
-// double-buffered (2 x 16,384 B a warpgroup; 229,952 B in all at 1024
-// rows). Both lie chunk-major (byte k of row r at ((k / 16) * rows + r) *
-// 16 + k % 16), which is the no-swizzle layout of 8-row x 16-byte core
-// matrices: descriptor sbo = 128, lbo = 16 * rows. Per m-tile a warpgroup
-// issues wgmma m64n128k32 s8 for its four k-steps, commits, builds the
-// next piece's B tile while they run (at the first m-tile of a piece),
-// waits, and folds the 64 accumulators; while one warpgroup folds, the
-// other two keep the tensor cores busy.
+// Design of X1, X2, X3, X5 and X6 full/dot (wgmma_kernel, the helpers in
+// wgmma_s8.cuh): X1, X2 and X3 compute X5's function, so they run X5's
+// kernel at their TPU kernels' t_tile of 4096; what is theirs is in the
+// launchers below (X1's whole tiles, X2's int16 threshold) and, for X3, in
+// its wrapper, which moves its block-layout guide column 32b+i to 4i+b once
+// per call (one copy of G x 128 bytes). The product sums over the 128
+// columns, so one permutation of the columns of both operands changes no
+// count: the permuted guides times X5's interleaved B tile are the TPU
+// kernel's block-layout product, code rows >= L (0, base A) included. A B
+// tile built in block order instead (four packed codes a word, X4's
+// __vcmpeq4 build) needs no permutation but ran 0.6% slower (PERF.md).
+// The kernel is a persistent grid of one block per SM, three warpgroups a
+// block. A = the interleaved guides, already K-major (row-major, 128 bytes a
+// row), staged once per block with cp.async, at most 1024 rows (131,072 B) at
+// a time and zero-padded to the 64-row m-tile, as X4 stages; B = one tile of
+// 128 targets x 128 one-hot bytes, K-major, that each warpgroup builds
+// itself, double-buffered (2 x 16,384 B a warpgroup; 229,952 B in all at 1024
+// rows). Both lie chunk-major (byte k of row r at ((k / 16) * rows + r) * 16
+// + k % 16), which is the no-swizzle layout of 8-row x 16-byte core matrices:
+// descriptor sbo = 128, lbo = 16 * rows. Per m-tile a warpgroup issues wgmma
+// m64n128k32 s8 for its four k-steps, commits, builds the next piece's B tile
+// while they run (at the first m-tile of a piece), waits, and folds the 64
+// accumulators; while one warpgroup folds, the other two keep the tensor
+// cores busy.
 //  - X5's B tile from the (32, n) codes: thread j takes target j, and
 //    position i's 4 bytes are __vcmpeq4(c * 0x01010101, 0x03020100) &
 //    0x01010101; PAD_CODE and targets past the piece's end give zero bytes.
@@ -117,7 +119,7 @@
 //    descriptors are built once per stage and stepped by adding 16-byte
 //    units, and k-step 0 overwrites the accumulators (scale-d 0), so none is
 //    set beforehand.
-//  - The hit epilogue (X1, X2, X5, X6 full): each thread keeps the running max of
+//  - The hit epilogue (X1, X2, X3, X5, X6 full): each thread keeps the running max of
 //    its two rows' counts per column held, one VIMNMX3 (__vimax3_s32, a
 //    Hopper instruction) per two accumulators, from 0 (counts are >= 0, so
 //    any thr <= 0 hits, as max(m) >= thr does); after the last m-tile it
@@ -185,80 +187,6 @@ constexpr int kWgScratch = 16 * 4 + ff_wgmma::kN;
 
 enum Mode { kFull = 0, kDot = 1, kCopy = 2 };
 enum Src { kCodes = 0, kOneHot = 1 };
-
-// Pack the (g_rows, 128) 0/1 block-layout guide bytes into s_guide as
-// g_rows x {word b = 0..3}, bit i of word b being the guide's byte for base
-// b at position i: word k covers columns [32k, 32k+32), guide k/4, base k%4
-// (stage1.cu)
-__device__ void pack_guides(const int8_t* __restrict__ guides, int g_rows,
-                            uint4* s_guide) {
-  uint32_t* s_words = reinterpret_cast<uint32_t*>(s_guide);
-  for (int k = threadIdx.x; k < g_rows * 4; k += blockDim.x) {
-    const uint4* src = reinterpret_cast<const uint4*>(guides) + 2 * k;
-    const uint4 a = src[0];
-    const uint4 b = src[1];
-    const uint32_t lanes[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-    uint32_t w = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        w |= ((lanes[j] >> (8 * q)) & 0xFFu) ? (1u << (4 * j + q)) : 0u;
-      }
-    }
-    s_words[k] = w;
-  }
-  __syncthreads();
-}
-
-struct Masks {
-  uint32_t m[4];
-};
-
-// Target t's masks from the (32, n) codes; PAD_CODE sets no bit.
-__device__ __forceinline__ Masks code_masks(const int8_t* __restrict__ codes,
-                                            long long n, long long t) {
-  Masks k = {{0u, 0u, 0u, 0u}};
-#pragma unroll
-  for (int i = 0; i < kCodeRows; ++i) {
-    const int c = codes[static_cast<long long>(i) * n + t];
-    const uint32_t bit = 1u << i;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) k.m[b] |= (c == b) ? bit : 0u;
-  }
-  return k;
-}
-
-__device__ __forceinline__ int matches(const Masks& k, const uint4 w) {
-  return __popc((k.m[0] & w.x) | (k.m[1] & w.y) | (k.m[2] & w.z) |
-                (k.m[3] & w.w));
-}
-
-// max over all g_rows guides of the match count, then the threshold: no
-// early exit
-__device__ __forceinline__ int8_t max_hit(const Masks& k, const uint4* s_guide,
-                                          int g_rows, int thr) {
-  int best = -1;
-  for (int g = 0; g < g_rows; ++g) {
-    const int c = matches(k, s_guide[g]);
-    best = c > best ? c : best;
-  }
-  return best >= thr ? 1 : 0;
-}
-
-// X3: persistent grid, the guide words packed once per resident block
-__global__ void __launch_bounds__(kThreads)
-max_kernel(const int8_t* __restrict__ codes, long long n,
-           const int8_t* __restrict__ guides, int g_rows, int thr,
-           int8_t* __restrict__ out) {
-  extern __shared__ uint4 s_guide[];
-  pack_guides(guides, g_rows, s_guide);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       t < n; t += stride) {
-    out[t] = max_hit(code_masks(codes, n, t), s_guide, g_rows, thr);
-  }
-}
 
 // X6 copy, the tool's read-rate probe, over the pre-expanded one-hot on a
 // persistent grid: it reads all 128 rows and writes row 0. zero is 0 (see
@@ -671,27 +599,16 @@ int launch_persistent(Kernel kernel, const void* src, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-size_t guide_smem(int g_rows) { return static_cast<size_t>(g_rows) * sizeof(uint4); }
-
 }  // namespace
 
 // Each launcher runs on `stream` and returns the cudaError_t of the launch
 // (0 on success). codes: (32, n) int8; onehot: (128, n) int8; guides:
-// (g_rows, 128) int8, 16-byte aligned, g_rows >= 1; out: (n,) int8. X3
-// keeps 16 bytes of packed words per guide row in the default 48 KB of
-// shared memory, so it takes g_rows <= 3072; X1, X2, X4, X5 and X6 stage
-// 1024 rows at a time in dynamic shared memory, so they take any g_rows.
-// The wrappers cap g_rows at 2048 (ops/scan_kernel.py MAX_GUIDE_ROWS). The
-// caller checks shapes, types, alignment, 0/1 guide bytes and the
-// thresholds' range.
+// (g_rows, 128) int8, 16-byte aligned, g_rows >= 1; out: (n,) int8. The
+// kernels stage 1024 guide rows at a time in dynamic shared memory, so they
+// take any g_rows; the wrappers cap it at 2048 (ops/scan_kernel.py
+// MAX_GUIDE_ROWS). The caller checks shapes, types, alignment, 0/1 guide
+// bytes and the thresholds' range.
 static_assert(kOneHotRows == 4 * kCodeRows, "one-hot is 4 x 32 rows");
-
-extern "C" int ff_v4_concat_onehot_launch(const void* codes, long long n,
-                                          const void* guides, int g_rows,
-                                          int thr, void* out, void* stream) {
-  return launch_persistent(max_kernel, codes, n, guides, g_rows, thr, out, stream,
-                           guide_smem(g_rows), kThreads);
-}
 
 extern "C" int ff_v6_bf16out_launch(const void* codes, long long n,
                                     const void* guides, int g_rows, int thr,
@@ -714,8 +631,9 @@ extern "C" int ff_v6_bf16out_launch(const void* codes, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// X1, X2 (codes, t_tile 4096), X5 (codes, t_tile >= 1) and X6 full/dot
-// (one-hot, t_tile = 128): the persistent wgmma kernel, one block per SM
+// X1, X2 (codes, t_tile 4096), X5 (codes, t_tile >= 1; X3 at 4096) and X6
+// full/dot (one-hot, t_tile = 128): the persistent wgmma kernel, one block
+// per SM
 template <int kSrc, int kMode>
 int launch_wgmma(const void* src, long long n, const void* guides, int g_rows,
                  int thr, long long t_tile, void* out, void* stream) {
@@ -740,7 +658,8 @@ int launch_wgmma(const void* src, long long n, const void* guides, int g_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// t_tile >= 1 targets per work unit; the answer does not depend on it
+// t_tile >= 1 targets per work unit; the answer does not depend on it. X3
+// launches it at 4096 on its permuted guides (the wrapper's).
 extern "C" int ff_v5_tile_launch(const void* codes, long long n,
                                  const void* guides, int g_rows, int thr,
                                  int t_tile, void* out, void* stream) {

@@ -103,7 +103,6 @@ def stage1_variants_library() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn, extra in ((lib.ff_v1_gloop_launch, []),
                       (lib.ff_v3_int16_launch, []),
-                      (lib.ff_v4_concat_onehot_launch, []),
                       (lib.ff_v6_bf16out_launch, []),
                       (lib.ff_v5_tile_launch, [i]),
                       (lib.ff_expanded_launch, [i])):

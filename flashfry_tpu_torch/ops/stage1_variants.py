@@ -26,8 +26,9 @@ layout" column 32b+i (`scan_kernel.guide_block_layout`).
 Each wrapper takes a CPU tensor to its plain PyTorch version `*_reference`,
 and a CUDA tensor to its hand-written kernel in csrc/stage1_variants.cu, or
 raises; `<wrapper>.launches` counts kernel launches. The kernels' header
-gives the designs: X1, X2, X5 and X6 full/dot on the int8 tensor cores with
-wgmma (one kernel), X4 with mma.sync, X3 and X6 copy on the CUDA cores.
+gives the designs: X1, X2, X3, X5 and X6 full/dot on the int8 tensor cores
+with wgmma (one kernel; X3 on its guides permuted to interleaved order by
+`interleaved_from_block`), X4 with mma.sync, X6 copy on the CUDA cores.
 Input checks, the chunked plain matmul and the launch are scan_kernel's,
 shared with stage 1.
 """
@@ -42,6 +43,7 @@ from .scan_kernel import (CODE_ROWS, OH_ROWS, check_inputs, codes_onehot,
 
 MODES = {"full": 0, "dot": 1, "copy": 2}  # expanded's modes, as the launcher numbers them
 G_TILE = 128  # v1_gloop's guide tile, the TPU kernel's g_tile
+X3_T_TILE = 4096  # v4_concat_onehot's target tile, the TPU kernel's t_tile
 _INT16 = (-(1 << 15), (1 << 15) - 1)
 _INT32 = (-(1 << 31), (1 << 31) - 1)
 
@@ -50,6 +52,16 @@ def interleaved_guides(guide_oh: torch.Tensor, L: int) -> torch.Tensor:
     """(G, 4L) guide one-hot (column 4i+b) -> (G, 128) int8, zero from
     column 4L, contiguous, on guide_oh's device: the tool's `guide_i8`."""
     return F.pad(guide_oh.to(torch.int8), (0, OH_ROWS - 4 * L)).contiguous()
+
+
+def interleaved_from_block(guide_blk: torch.Tensor) -> torch.Tensor:
+    """(G, 128) block-layout guides (column 32b+i) -> (G, 128) interleaved
+    (column 4i+b), contiguous, on the same device: one copy. The one-hot
+    product sums over the columns, so the interleaved guides times
+    interleaved_onehot give the block-layout guides' counts with
+    codes_onehot."""
+    G = guide_blk.shape[0]
+    return guide_blk.reshape(G, 4, CODE_ROWS).transpose(1, 2).reshape(G, OH_ROWS).contiguous()
 
 
 def super_rows(guide_blk: torch.Tensor) -> torch.Tensor:
@@ -182,13 +194,14 @@ def v3_int16(codes: torch.Tensor, guide_i8: torch.Tensor, thr: int) -> torch.Ten
 def v4_concat_onehot(codes: torch.Tensor, guide_blk: torch.Tensor,
                      thr: int) -> torch.Tensor:
     """X3: (32, N) int8 codes, (G, 128) int8 0/1 block-layout guides ->
-    (1, N) int8 hit bytes."""
+    (1, N) int8 hit bytes: X5's wgmma kernel at the TPU kernel's t_tile of
+    4096 on the guides permuted once to interleaved order."""
     check_inputs(codes, guide_blk, "v4_concat_onehot")
     _check_thr(thr, "v4_concat_onehot")
     if codes.device.type == "cpu":
         return v4_concat_onehot_reference(codes, guide_blk, thr)
-    return launch(v4_concat_onehot, _library().ff_v4_concat_onehot_launch,
-                  codes, guide_blk, thr).unsqueeze(0)
+    return launch(v4_concat_onehot, _library().ff_v5_tile_launch, codes,
+                  interleaved_from_block(guide_blk), thr, X3_T_TILE).unsqueeze(0)
 
 
 def v6_bf16out(codes: torch.Tensor, guide_blk: torch.Tensor,

@@ -152,13 +152,15 @@ def test_v6_bf16out_kernel_equals_plain_at_every_row_count_and_thr_edge(cuda, G)
 
 @pytest.mark.parametrize("G", chip_smoke.WGMMA_ROWS)
 def test_v5_tile_and_expanded_kernels_equal_plain_at_every_row_count_and_thr_edge(cuda, G):
-    """X5 and X6 full/dot on the wgmma kernel, on a ragged width with a
-    PAD_CODE tail, at guide rows around its 64-row m-tile and its 1024-row
-    stage, X5 at target tiles 1, 100, 2048, 8192 and n + 1, X6 on the
+    """X1, X2, X3, X5 and X6 full/dot on the wgmma kernel, on a ragged
+    width with a PAD_CODE tail, at guide rows around its 64-row m-tile and
+    its 1024-row stage, X3 on block-layout guides (its block-order target
+    tile), X5 at target tiles 1, 100, 2048, 8192 and n + 1, X6 on the
     expanded one-hot and on random 0/1 bytes (several 1s per group of four
     rows: the tensor-core product needs no one-hot), at every int32
-    threshold edge: bitwise equal to the plain versions, one launch per
-    call."""
+    threshold edge (X2: int16): bitwise equal to the plain versions, one
+    counted launch per call (chip_smoke.wgmma_edge_compares asserts the
+    counts)."""
     rng = np.random.default_rng(13)
     n_real, n = 150_001, 153_333
     targets = rng.integers(0, 1 << 46, size=n_real, dtype=np.uint64)

@@ -447,7 +447,7 @@ def test_v6_bf16out_is_integer_any_count_at_least_thr(thr):
 
 
 # ---------------------------------------------------------------------------
-# A numpy model of the wgmma kernel of X1, X2, X5 and X6
+# A numpy model of the wgmma kernel of X1, X2, X3, X5 and X6
 # (csrc/stage1_variants.cu wgmma_kernel, csrc/wgmma_s8.cuh), step by step
 # as the card runs it: the guide stages and B tiles laid out chunk-major in
 # shared memory and read back through the no-swizzle K-major descriptor
@@ -613,7 +613,8 @@ def acc_owner():
 
 def wgmma_model(src, guides, thrs, mode, t_tile=WG_N, source="codes"):
     """Bytes of the wgmma kernel on the CPU: {thr: (n,) int8} for mode
-    "full" (at each thr), or {None: (n,) int8} for "dot"."""
+    "full" (at each thr), or {None: (n,) int8} for "dot". source names the
+    B tile's build: "codes" (X1, X2, X3, X5) or "onehot" (X6)."""
     n, G = src.shape[1], guides.shape[0]
     lo, hi = pieces(n, t_tile)
     if source == "codes":
@@ -666,8 +667,9 @@ def wgmma_model(src, guides, thrs, mode, t_tile=WG_N, source="codes"):
     return out
 
 
-def wg_guides(rows, codes, n_real, seed):
-    """(rows, 128) interleaved 0/1 guides: a third exact one-hots of target
+def wg_guides(rows, codes, n_real, seed, onehot_T=sv.interleaved_onehot):
+    """(rows, 128) 0/1 guides, interleaved (onehot_T = interleaved_onehot)
+    or in block layout (codes_onehot): a third exact one-hots of target
     columns (all 32 positions), a third with 1..6 substitutions, a third
     random 0/1 bytes."""
     rng = np.random.default_rng(seed)
@@ -675,7 +677,7 @@ def wg_guides(rows, codes, n_real, seed):
     for j in range(rows // 3, rows):
         pos = rng.choice(32, size=1 + j % 6, replace=False)
         sel[j, pos] = (sel[j, pos] + int(rng.integers(1, 4))) % 4
-    guides = sv.interleaved_onehot(torch.from_numpy(sel)).numpy()
+    guides = onehot_T(torch.from_numpy(sel)).numpy()
     dense = (rng.random((rows, 128)) < 0.25).astype(np.int8)
     guides[2 * rows // 3:] = dense[2 * rows // 3:]
     return np.ascontiguousarray(guides)
@@ -848,3 +850,66 @@ def test_wgmma_model_equals_v3_int16_reference(G_rows):
             assert not want.any(), thr
         partial += 0 < int(want[:n_real].sum()) < n_real
     assert partial or G_rows == 1
+
+
+# X3 on the same kernel: its wrapper permutes the block-layout guides to
+# interleaved order once per call (interleaved_from_block) and runs X5's
+# launcher at the TPU kernel's t_tile of 4096.
+
+X3_TILES = (1, 100, TOOL_TILE, "n+1")
+
+
+@pytest.mark.parametrize("t_tile", X3_TILES)
+@pytest.mark.parametrize("G_rows", WG_ROWS)
+def test_wgmma_model_equals_v4_concat_onehot_reference(G_rows, t_tile):
+    """X3 on block-layout guides with 1s in columns 24..31 (base A at
+    positions the codes hold as 0), a PAD_CODE tail and n not a multiple of
+    128, permuted as its wrapper permutes them, at every int32 threshold
+    edge: every byte is 1 at thr <= 0 and none is set past 32. Its answer,
+    like X5's, does not depend on the target tile."""
+    n = 69 if t_tile == 1 else TOOL_TILE + 2345
+    codes, n_real = wg_codes(n, seed=17 * G_rows)
+    guides = wg_guides(G_rows, codes, n_real, seed=G_rows + 5, onehot_T=codes_onehot)
+    assert guides[:, 24:32].any() and n % WG_N
+    permuted = sv.interleaved_from_block(torch.from_numpy(guides)).numpy()
+    got = wgmma_model(codes, permuted, THR_EDGES, "full",
+                      t_tile=n + 1 if t_tile == "n+1" else t_tile)
+    c, g = torch.from_numpy(codes), torch.from_numpy(guides)
+    partial = 0
+    for thr in THR_EDGES:
+        want = sv.v4_concat_onehot_reference(c, g, thr)[0].numpy()
+        assert np.array_equal(got[thr], want), (G_rows, t_tile, thr)
+        if thr <= 0:
+            assert want.all(), thr
+        elif thr > 32:
+            assert not want.any(), thr
+        partial += 0 < int(want[:n_real].sum()) < n_real
+    # with more exact copies than real targets, every target reaches 32
+    assert partial or G_rows == 1 or G_rows // 3 > n_real
+
+
+def test_interleaved_from_block_moves_column_32b_plus_i_to_4i_plus_b():
+    """X3's permutation: column 4i+b of the result is block column 32b+i
+    (a bijection of the 128 columns), the block layout of a guide one-hot
+    comes back as its interleaved layout, and the permuted guides times the
+    interleaved one-hot (X5's B tile) give the block-layout guides' counts
+    with codes_onehot: the product sums over the columns, so their order
+    is free."""
+    rng = np.random.default_rng(29)
+    blk = torch.from_numpy(rng.integers(-128, 128, size=(70, 128)).astype(np.int8))
+    got = sv.interleaved_from_block(blk)
+    assert got.dtype == torch.int8 and got.is_contiguous() and got.shape == blk.shape
+    for i in range(32):
+        for b in range(4):
+            assert torch.equal(got[:, 4 * i + b], blk[:, 32 * b + i]), (i, b)
+    codes, n_real = wg_codes(1000, seed=29)
+    for L in (20, 23, 24):
+        oh = torch.from_numpy(rng.integers(0, 2, size=(66, 4 * L)).astype(np.int8))
+        assert torch.equal(sv.interleaved_from_block(guide_block_layout(oh, L)),
+                           sv.interleaved_guides(oh, L)), L
+    guides = torch.from_numpy(wg_guides(66, codes, n_real, seed=23, onehot_T=codes_onehot))
+    c_T = torch.from_numpy(codes).t()
+    counts = torch._int_mm(codes_onehot(c_T).contiguous(), guides.t().contiguous())
+    assert torch.equal(counts, torch._int_mm(sv.interleaved_onehot(c_T).contiguous(),
+                                             sv.interleaved_from_block(guides).t().contiguous()))
+    assert int(counts.max()) == 32 and not counts[n_real:].any()
