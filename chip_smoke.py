@@ -28,6 +28,18 @@ each of which fails the run on any mismatch:
      stage-1 kernel vs plain, bitwise and timed, with its bound and library
      call, at the main path's shape (the CLI's 2048-row guide block x the
      whole database) and at 1024 rows;
+  5b. the same database streamed through the card in target slabs, at
+     bench.py's certification budget (CODE_ROWS x N / 2 bytes of planes,
+     >= 3 slabs): every slab the double-buffered build hands out equals the
+     resident planes' columns, with PAD_CODE past the last target; the
+     streaming scan of the CLI's guides at mm=4 gives phase 5's resident
+     hits per guide in order, with one stage-1 launch per slab and guide
+     block; engine.discover on the streaming scanner writes phase 5's CLI
+     bytes with as many launches; stage-1 kernel vs plain, bitwise and
+     timed, on the last (partial) slab at the slab's shape; the streaming
+     seconds beside the resident scan and plane-build seconds;
+  5c. the port's `random` (1000 targets, seed 1) and `extract` (phase 3's
+     SpCas9-NGG database) CLIs, their output read back and checked;
   6. stage-1 variants at the experiment tool's size: the port's tool
      (`flashfry_tpu_torch.tools.experiment_stage1`) runs all twelve keys of
      the JAX tool on (32, 2^23) codes x 1024 guides and the (128, 2^23)
@@ -84,9 +96,12 @@ exits 1 and prints no result. It imports neither JAX nor flashfry_tpu.
 
 profile_main_path(), not run by main(), breaks the 400 Mbp discover CLI
 down further (repeat runs at mm 3/4/5, the plane build split, a
-torch.profiler pass):
+torch.profiler pass), and profile_streaming() the streaming scan of phase
+5b (repeat scans beside the resident build and scan, its host steps apart,
+a torch.profiler pass):
 
     python3 -c 'import chip_smoke; chip_smoke.profile_main_path()'
+    python3 -c 'import chip_smoke; chip_smoke.profile_streaming()'
 """
 
 from __future__ import annotations
@@ -111,10 +126,10 @@ from flashfry_tpu_torch.bitcoding import BitEncoding  # noqa: E402
 from flashfry_tpu_torch.ops import _build  # noqa: E402
 from flashfry_tpu_torch.ops.scan import (  # noqa: E402
     PAD_CODE, SLAB, DeviceScanner, expand_codes, guide_block_rows,
-    guide_onehot_matrix, split_words)
+    guide_onehot_matrix, interleaved_blocks, split_words)
 from flashfry_tpu_torch.ops import stage1_variants as sv  # noqa: E402
 from flashfry_tpu_torch.ops.scan_kernel import (  # noqa: E402
-    _REF_ELEMS, K_COLS, OH_ROWS, codes_onehot, codes_onehot_compact,
+    _REF_ELEMS, CODE_ROWS, K_COLS, OH_ROWS, codes_onehot, codes_onehot_compact,
     compact_guides, guide_block_layout, launch, stage1, stage1_reference)
 from flashfry_tpu_torch.scoring.device import (  # noqa: E402
     descriptors, descriptors_plain)
@@ -692,11 +707,140 @@ def phase_main_path() -> dict:
             "columns), library call %.3f ms"
             % (g_rows, b["bound_ms"], b["bound_by"], b["bound_ms_128"], lib))
     del oh, blocks
-    return {"name": "stage1", "route": "cuda",
-            "source": "flashfry_tpu_torch/csrc/stage1.cu",
-            "replaces": STAGE1_TPU, "launches": launches,
-            "max_abs_err": err, **nums.pop(rows),
-            "variants": {"rows_%d" % r: v for r, v in nums.items()}}
+    entry = {"name": "stage1", "route": "cuda",
+             "source": "flashfry_tpu_torch/csrc/stage1.cu",
+             "replaces": STAGE1_TPU, "launches": launches,
+             "max_abs_err": err, **nums.pop(rows),
+             "variants": {"rows_%d" % r: v for r, v in nums.items()}}
+    main = {"db": db, "fasta": fasta, "scanned": scanned, "out": out,
+            "resident": scanner, "hits": (t_idx, g_idx, mm), "scan_s": t_scan,
+            "build_s": scanner.init_timings["codes_upload_expand_s"]}
+    return entry, main
+
+
+def per_guide(hits):
+    """(t_idx, g_idx, mm) in scan order -> the same rows, stably grouped by
+    guide: each guide's hits in the order the scan gave them."""
+    order = np.argsort(hits[1], kind="stable")
+    return [np.asarray(a)[order] for a in hits]
+
+
+def phase_streaming(kernel: dict, main: dict) -> None:
+    """Phase 5b: phase 5's database streamed through the card in slabs at
+    bench.py's certification budget, CODE_ROWS * n // 2 bytes of planes.
+    Each slab the double-buffered build hands out equals the resident
+    planes' columns (PAD_CODE past the last target); the scan of the CLI's
+    guides gives phase 5's resident hits per guide in order, with one K1
+    launch per slab and guide block; engine.discover on the streaming
+    scanner writes phase 5's CLI bytes; K1 against its plain version on the
+    last (partial) slab, timed at the slab's shape."""
+    db, scanned, resident = main["db"], main["scanned"], main["resident"]
+    n = db.num_targets
+    stream = DeviceScanner(db, DEVICE, budget=CODE_ROWS * n // 2)
+    if stream.mode != "streaming" or stream.slabs < 3:
+        raise AssertionError("budget %d gave %s in %d slabs"
+                             % (CODE_ROWS * n // 2, stream.mode, stream.slabs))
+    blocks = len(interleaved_blocks(scanned.shape[0],
+                                    guide_block_rows(scanned.shape[0])))
+    say("phase 5b streaming: budget %d bytes for %d bytes of planes: %d slabs "
+        "of %d targets, %d guide block(s)"
+        % (CODE_ROWS * n // 2, CODE_ROWS * n, stream.slabs, stream.slab_n, blocks))
+    for t_lo, codes, n_valid in stream.stream_slabs():
+        if not (torch.equal(codes[:, :n_valid], resident.codes[:, t_lo:t_lo + n_valid])
+                and bool((codes[:, n_valid:] == PAD_CODE).all())):
+            raise AssertionError("slab at %d differs from the resident planes" % t_lo)
+        last = codes
+    say("  each of the %d slabs the copy stream built equals the resident "
+        "planes' columns" % stream.slabs)
+
+    stage1.launches = 0
+    t = time.perf_counter()
+    hits = collect_hits(stream, scanned, 4)
+    t_stream = time.perf_counter() - t
+    launches = stage1.launches
+    want = per_guide(main["hits"])
+    if launches != stream.slabs * blocks:
+        raise AssertionError("%d stage-1 launches streaming %d slabs x %d blocks"
+                             % (launches, stream.slabs, blocks))
+    if not all(np.array_equal(a, b) for a, b in zip(per_guide(hits), want)):
+        raise AssertionError("the streaming scan's hits differ from the resident scan's")
+    say("  DeviceScanner.scan streaming the CLI's %d guides at mm=4: %.4fs, "
+        "%d hits == the resident scan's per guide in order; %d stage-1 "
+        "launches; resident scan %.4fs + planes build %.4fs = %.4fs"
+        % (scanned.shape[0], t_stream, hits[0].size, launches, main["scan_s"],
+           main["build_s"], main["scan_s"] + main["build_s"]))
+
+    sites = cli.find_target_sites(cli.iterate_fasta(main["fasta"]), db.pack,
+                                  flanking_sequence=6, capture_context=True)
+    stage1.launches = 0
+    t = time.perf_counter()
+    guides = engine.discover(db, sites, max_mismatch=4, device=DEVICE,
+                             scanner=stream)
+    t_discover = time.perf_counter() - t
+    discover_launches = stage1.launches
+    out = os.path.join(WORK, "g400_mm4_stream.out")
+    cli.write_output(out, guides, db.bit_encoding(), db.bit_position(),
+                     models=(), write_ots=True, write_positions=True)
+    if discover_launches != stream.slabs * blocks:
+        raise AssertionError("%d stage-1 launches in the streaming discover"
+                             % discover_launches)
+    if not filecmp.cmp(out, main["out"], shallow=False):
+        raise AssertionError("streaming discover output differs from phase 5's CLI")
+    say("  engine.discover on the streaming scanner: %.4fs, %d stage-1 "
+        "launches, %d bytes identical to phase 5's CLI output"
+        % (t_discover, discover_launches, os.path.getsize(out)))
+
+    # K1 on the last slab (partial: PAD_CODE past its targets), as streaming
+    # launches it: the CLI's guide block over the whole slab width
+    thr = len(db.pack.comparison_mask_positions()) - 4
+    oh, _, _ = guide_onehot_matrix(scanned, db.pack,
+                                   pad_to=guide_block_rows(scanned.shape[0]))
+    gi8 = guide_block_layout(torch.from_numpy(oh).to(DEVICE), db.pack.total_scan_length)
+    ref = stage1_reference(last, gi8, thr)
+    err = max_abs_err(stage1(last, gi8, thr), ref, "stage1 on the last slab")
+    p1 = cuda_ms(lambda: stage1_reference(last, gi8, thr), 3)
+    k1 = cuda_ms(lambda: stage1(last, gi8, thr), 10)
+    k2 = cuda_ms(lambda: stage1(last, gi8, thr), 10)
+    p2 = cuda_ms(lambda: stage1_reference(last, gi8, thr), 3)
+    lib = library_ms(prebuilt_onehot(last, codes_onehot_compact), compact_guides(gi8),
+                     lambda m: m.amax(dim=1) >= thr, ref)
+    b = k1_bound(last, gi8.shape[0])
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
+    kernel["variants"]["streaming_slab"] = {
+        "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **b, "library_ms": lib,
+        "kernel_only_ms": k1_kernel_only_ms(last, compact_guides(gi8), thr, ref),
+        "launches": launches, "slabs": stream.slabs, "slab_n": stream.slab_n,
+        "scan_s": t_stream, "discover_s": t_discover,
+        "resident_scan_s": main["scan_s"], "resident_build_s": main["build_s"]}
+    say("  stage1 at the slab's (32, %d) x (%d, 128): kernel %.3f ms (%.3f, "
+        "%.3f), plain %.3f ms, library %.3f ms, bound %.3f ms (%s), bitwise equal"
+        % (stream.slab_n, gi8.shape[0], (k1 + k2) / 2, k1, k2, (p1 + p2) / 2, lib,
+           b["bound_ms"], b["bound_by"]))
+
+
+def phase_host_commands() -> None:
+    """The port's random and extract commands on the card's machine:
+    1000 random SpCas9-NGG targets from seed 1, and every target of phase
+    3's SpCas9-NGG database, read back and checked."""
+    rnd = os.path.join(WORK, "random.fa")
+    cli.run(["random", "--outputFile", rnd, "--enzyme", "spcas9ngg",
+             "--randomCount", "1000", "--seed", "1"])
+    lines = open(rnd).read().splitlines()
+    seqs = lines[1::2]
+    if (len(seqs) != 1000 or len(set(seqs)) != 1000
+            or any(len(q) != 23 or not q.endswith("GG") for q in seqs)):
+        raise AssertionError("random did not write 1000 distinct NGG targets")
+    db_path = os.path.join(WORK, "small_spcas9ngg.db")
+    ext = os.path.join(WORK, "extract.fa")
+    cli.run(["extract", "--binaryOTFile", db_path, "--outputFile", ext])
+    db = cli.load_database(db_path)
+    want, _ = db.bit_encoding().decode_batch(db.targets)
+    got = open(ext).read().splitlines()[1::2]
+    if got != list(want):
+        raise AssertionError("extract did not write the database's %d targets"
+                             % db.num_targets)
+    say("phase 5c host commands: random wrote 1000 distinct targets, extract "
+        "the %d targets of %s" % (db.num_targets, os.path.basename(db_path)))
 
 
 def phase_variants():
@@ -1210,17 +1354,91 @@ def profile_main_path(reps: int = 3, trace_dir: str = "") -> None:
             cli.run(base + ["--maxMismatch", "5"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
-        events = prof.key_averages()
-        device_s = sum(e.self_device_time_total for e in events
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and not getattr(e, "is_user_annotation", False)) / 1e6
-        say("profiled mm=5 call: wall %.4fs, device time %.4fs, device idle "
-            "share %.4f" % (wall, device_s, 1 - device_s / wall))
-        say(events.table(sort_by="self_device_time_total", row_limit=15))
+        profile_table(prof, wall, "mm=5 call")
         if trace_dir:
             os.makedirs(trace_dir, exist_ok=True)
             prof.export_chrome_trace(
                 os.path.join(trace_dir, "trace_discover_400mbp_mm5.json"))
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+
+
+def profile_table(prof, wall: float, what: str) -> None:
+    """A torch.profiler pass's device time, the device's idle share over
+    wall seconds, and its top operators by device and by host time."""
+    events = prof.key_averages()
+    device_s = sum(e.self_device_time_total for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)) / 1e6
+    say("profiled %s: wall %.4fs, device time %.4fs, device idle share %.4f"
+        % (what, wall, device_s, 1 - device_s / wall))
+    say(events.table(sort_by="self_device_time_total", row_limit=12))
+    say(events.table(sort_by="self_cpu_time_total", row_limit=12))
+
+
+def profile_streaming(reps: int = 3) -> None:
+    """Where the time of phase 5b's streaming scan goes. Not part of main().
+
+    On phase 5's database and the CLI's guides at mm=4: the resident plane
+    build and scan, then `reps` streaming scans at phase 5b's budget (the
+    first also allocates the pinned pairs), each wall beside the other;
+    the host steps of one scan apart (split_words per slab, the copy into
+    a pinned pair); and one streaming scan under torch.profiler."""
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_streaming needs a CUDA card")
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    try:
+        phase_device()
+        _db_path, db, _fasta, _longs, scanned, _t_gen, _t_index = main_path_inputs()
+        n = db.num_targets
+        t = time.perf_counter()
+        resident = DeviceScanner(db, DEVICE)
+        t_build = time.perf_counter() - t
+        walls = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            collect_hits(resident, scanned, 4)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        say("resident: planes build %.4fs, scans %s" % (t_build, walls))
+        del resident
+        stream = DeviceScanner(db, DEVICE, budget=CODE_ROWS * n // 2)
+        walls = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            collect_hits(stream, scanned, 4)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        say("streaming: %d slabs of %d targets, scans %s"
+            % (stream.slabs, stream.slab_n, walls))
+
+        t = time.perf_counter()
+        pair = [torch.empty(stream.slab_n, dtype=torch.int32, pin_memory=True)
+                for _ in range(2)]
+        t_pin = time.perf_counter() - t
+        t_split = t_fill = 0.0
+        for lo in range(0, n, stream.slab_n):
+            t = time.perf_counter()
+            w_lo, w_hi = split_words(db.targets[lo:lo + stream.slab_n])
+            t_split += time.perf_counter() - t
+            t = time.perf_counter()
+            pair[0].numpy()[:w_lo.shape[0]] = w_lo
+            pair[1].numpy()[:w_hi.shape[0]] = w_hi
+            t_fill += time.perf_counter() - t
+        say("host steps of one streaming scan: split_words %.4fs, copy into "
+            "the pinned pair %.4fs; one pinned pair allocated in %.4fs"
+            % (t_split, t_fill, t_pin))
+        del pair
+
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t = time.perf_counter()
+            collect_hits(stream, scanned, 4)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        profile_table(prof, wall, "streaming scan")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1238,7 +1456,10 @@ def main() -> int:
         phase_build()
         err = phase_kernel_vs_plain()
         phase_byte_identity()
-        kernel = phase_main_path()
+        kernel, main_path = phase_main_path()
+        phase_streaming(kernel, main_path)
+        del main_path
+        phase_host_commands()
         variant_kernels, timed = phase_variants()
         desc_kernel = phase_descriptors()
         phase_score(desc_kernel)

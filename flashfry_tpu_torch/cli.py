@@ -1,4 +1,5 @@
-"""Command-line interface of the PyTorch port: index / discover / score.
+"""Command-line interface of the PyTorch port: index / discover / score /
+random / extract.
 
 `python -m flashfry_tpu_torch discover` takes flashfry_tpu's discover flags
 (reference flag names and defaults), scans on `--device` (default cuda; a
@@ -9,8 +10,9 @@ flags plus `--backend {device,native,numpy}` and `--device {cuda,cpu}`: the
 device backend (the default) runs the off-target descriptor pass on
 `--device`, the other two score on the host, and all three write
 byte-identical output. FLASHFRY_TPU_SCORE_BACKEND, set to one of the three
-names, is the default of `--backend`. Multi-process discover and the
-random / extract commands are not ported yet.
+names, is the default of `--backend`. `random` and `extract` are copies of
+flashfry_tpu's host-only commands. Multi-process discover is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -110,6 +112,37 @@ def _add_score(sub):
     return p
 
 
+def _add_random(sub):
+    p = sub.add_parser("random", help="Generate a random set of CRISPR targets")
+    p.add_argument("--outputFile", "-outputFile", required=True)
+    p.add_argument("--enzyme", "-enzyme", default="")
+    p.add_argument("--namePrefix", "-namePrefix", default="random")
+    p.add_argument("--onlyUnidirectional", "-onlyUnidirectional", action="store_true")
+    p.add_argument("--randomCount", "-randomCount", type=int, required=True)
+    p.add_argument("--sequenceContextLeft", "-sequenceContextLeft", type=int, default=0)
+    p.add_argument("--sequenceContextRight", "-sequenceContextRight", type=int, default=0)
+    p.add_argument("--patterned", "-patterned", default="")
+    p.add_argument("--duplicatesAllowed", "-duplicatesAllowed", action="store_true")
+    p.add_argument("--maxSuccessiveDesignFailures", "-maxSuccessiveDesignFailures", type=int, default=50)
+    p.add_argument("--seed", type=int, default=None,
+                   help="seed of the random draws: the same seed writes the same file")
+    return p
+
+
+def _add_extract(sub):
+    p = sub.add_parser("extract", help="Dump targets from the database to a FASTA")
+    # reference flag name is -binaryOTFile/--binaryOTFile
+    # (modules/DumpDatabase.scala:33-35); --database kept as an alias.
+    p.add_argument("--binaryOTFile", "-binaryOTFile", "--database", "-database",
+                   dest="database", required=True)
+    p.add_argument("--outputFile", "-outputFile", required=True)
+    p.add_argument("--minInGenome", "-minInGenome", type=int, default=0)
+    p.add_argument("--maxInGenome", "-maxInGenome", type=int, default=2 ** 31 - 1)
+    p.add_argument("--subsampleProportion", "-subsampleProportion", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=None)
+    return p
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="flashfry-tpu-torch",
@@ -118,6 +151,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_index(sub)
     _add_discover(sub)
     _add_score(sub)
+    _add_random(sub)
+    _add_extract(sub)
     return ap
 
 
@@ -165,10 +200,12 @@ def cmd_discover(args) -> dict:
     report["guide_sites_s"] = time.perf_counter() - t
 
     scanner = None
+    report.update(scan_mode="host", slabs=0)
     if device is not None:
         t = time.perf_counter()
         scanner = DeviceScanner(db, device)
         report["upload_expand_s"] = time.perf_counter() - t
+        report.update(scan_mode=scanner.mode, slabs=scanner.slabs)
 
     logger.info("Scanning %d candidate guides against the genome database...",
                 len(gsites))
@@ -213,13 +250,24 @@ def cmd_score(args) -> dict:
     return run_score_module(args, device)
 
 
+def cmd_random(args) -> None:
+    from .random_guides import generate_random_fasta
+    generate_random_fasta(args)
+
+
+def cmd_extract(args) -> None:
+    from .extract import dump_database
+    dump_database(args)
+
+
 def run(argv=None) -> Optional[dict]:
     """Parse argv and run the command; returns discover's or score's
     report."""
     args = build_parser().parse_args(argv)
     t0 = time.time()
     report = {"index": cmd_index, "discover": cmd_discover,
-              "score": cmd_score}[args.command](args)
+              "score": cmd_score, "random": cmd_random,
+              "extract": cmd_extract}[args.command](args)
     logger.info("Total runtime %.2fs", time.time() - t0)
     return report
 

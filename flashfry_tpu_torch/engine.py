@@ -5,7 +5,8 @@ copies of that module's: ScanStats, the bin-pruning mask and host
 comparison counter, the numpy XOR/popcount scan (`backend="numpy"`, the
 host oracle) and the overflow-cap hit collection (_collect_hits, native
 C++). What runs on the device is the logged comparison counter
-(pruned_comparisons_device) and the resident scan (ops.scan.DeviceScanner).
+(pruned_comparisons_device) and the scan (ops.scan.DeviceScanner, resident
+or streaming the database in slabs).
 """
 
 from __future__ import annotations
@@ -304,7 +305,7 @@ def pruned_comparisons_device(db: Database, guide_longs: np.ndarray,
 
 def _check_scanner(scanner: DeviceScanner, db: Database,
                    device: torch.device) -> None:
-    """A resident scanner built from a different database would silently
+    """A scanner built from a different database would silently
     scan the wrong genome: identity or a cheap content fingerprint (ends and
     total position count, O(1) even on memory-mapped arrays) must match."""
     sdb = scanner.db
@@ -315,9 +316,9 @@ def _check_scanner(scanner: DeviceScanner, db: Database,
              or (sdb.targets[0] == db.targets[0]
                  and sdb.targets[-1] == db.targets[-1])))
     if not same:
-        raise ValueError("resident scanner was built from a different database")
+        raise ValueError("scanner was built from a different database")
     if scanner.device != device:
-        raise ValueError("resident scanner lives on %s, discover was asked "
+        raise ValueError("scanner lives on %s, discover was asked "
                          "for %s" % (scanner.device, device))
 
 
@@ -335,8 +336,10 @@ def discover(db: Database, guide_sites: DiscoveredSites,
     backend "torch" scans on `device` (a missing card raises); "numpy" is
     the host scan of flashfry_tpu's numpy backend (bin-pruned XOR/popcount,
     _scan_numpy), which ignores device and scanner. scanner: a
-    DeviceScanner already holding this database, so repeat calls skip the
-    upload; one built from another database raises ValueError."""
+    DeviceScanner of this database, resident (repeat calls skip the upload)
+    or streaming; one built from another database raises ValueError.
+    Without one, discover builds DeviceScanner(db, device), which streams
+    when the planes do not fit in the card's free memory."""
     if backend not in BACKENDS:
         raise ValueError("backend must be one of %s, got %r"
                          % (", ".join(BACKENDS), backend))

@@ -1,12 +1,14 @@
-"""Mismatch scan against a database held resident on one device.
+"""Mismatch scan of a database on one device, resident or streamed.
 
-Counterpart of flashfry_tpu/ops/scan.py in resident mode. The database lives
-on the device as plane-major base codes, a (32, n_pad) int8 tensor (row i =
-base i of every target, rows >= L zero, padding columns PAD_CODE). A guide
-block is scanned in three steps:
+Counterpart of flashfry_tpu/ops/scan.py. The database lives on the device
+as plane-major base codes, a (32, N) int8 tensor (row i = base i of every
+target, rows >= L zero, padding columns PAD_CODE): resident, the whole
+database at once; streaming, when its planes exceed the device memory
+budget, one target slab at a time (DeviceScanner). A guide block is
+scanned over those codes in three steps:
 
   1. stage 1 (ops.scan_kernel.stage1, the CUDA kernel on a card): one launch
-     over the whole resident array gives a hit byte per target;
+     over the resident array, or over one slab, gives a hit byte per target;
   2. the hit columns, from torch.nonzero, ascending (every real column,
      without stage 1, when max_mismatch >= the active positions);
   3. stage 2, per batch of at most COL_BATCH hit columns: gather their codes,
@@ -15,17 +17,18 @@ block is scanned in three steps:
      row-major order of the (columns, guides) mask.
 
 Row-major order over ascending columns is target-major within each guide,
-the order FlashFry applies hits in: the 2000-position overflow cap of
-engine._collect_hits depends on it. PyTorch's shapes are dynamic, so the
-compaction counts first and allocates exactly: there are no fixed column
-or triplet caps, no escalation, no retries and no host fallback.
-
-Streaming the database through the device in slabs is not ported yet: a
-database whose planes do not fit in free device memory raises.
+and streaming scans its slabs in ascending order, outside the guide
+blocks: per guide, hits arrive in global target order, the order FlashFry
+applies them in. The 2000-position overflow cap of engine._collect_hits
+depends on it. PyTorch's shapes are dynamic, so the compaction counts
+first and allocates exactly: there are no fixed column or triplet caps, no
+escalation, no retries and no host fallback.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import time
 from typing import Iterator, Optional, Tuple, Union
 
@@ -37,12 +40,19 @@ from ..bitcoding import STRING_MASK
 from ..database import Database
 from ..device import resolve_device
 from ..standards import ParameterPack
-from .scan_kernel import (CODE_ROWS, MAX_GUIDE_ROWS, codes_onehot,
-                          guide_block_layout, stage1)
+from .scan_kernel import (CODE_ROWS, K_COLS, K_POSITIONS, MAX_GUIDE_ROWS,
+                          OH_ROWS, codes_onehot, guide_block_layout, stage1)
+
+logger = logging.getLogger("flashfry_tpu_torch.scan")
 
 _PAD_MM = 127        # mismatch count of guide padding rows (never a hit)
 COL_BATCH = 16384    # hit columns recounted per stage-2 batch
 SLAB = 1 << 22       # targets uploaded and expanded per step of the plane build
+SLAB_GRANULE = 1 << 12  # a streaming slab's width is a multiple of this many
+                        # targets: 64 of K1's 64-target warp tiles
+HIT_COL_BYTES = 1 + 8   # per column one stage-1 launch scans: its hit byte, and
+                        # the int64 index torch.nonzero gives a hit column
+                        # (every column can hit)
 DEFAULT_CAP = 1 << 12   # the JAX scan's stage-1 hit targets per chunk (the
                         # experiment tool's gather size)
 
@@ -196,32 +206,85 @@ def guide_block_rows(n_guides: int) -> int:
     return block
 
 
-def _fits_or_raise(nbytes: int, device: torch.device) -> None:
-    if device.type != "cuda":
-        return
+def scan_reserve_bytes(cols: int) -> int:
+    """Device bytes the scan of one guide block of MAX_GUIDE_ROWS rows
+    needs beside the code planes, when one stage-1 launch scans `cols`
+    target columns:
+      - HIT_COL_BYTES per column: the stage-1 hit bytes and their indices;
+      - one stage-2 batch of COL_BATCH columns: the gathered codes, their
+        padding and one-hot (recount), per (column, guide) pair three int32
+        counts (the product, the difference, the clamped counts) and the
+        mask, and per hit pair (every pair can hit) two int64 indices, the
+        gathered int32 count and its int8 copy;
+      - the guide tensors: the float32 one-hot upload, the block layout,
+        the compacted guides and stage1's check of them, the n_active row;
+      - one plane-build piece of SLAB targets: its lo and hi words and the
+        two int32 temporaries of expand_codes."""
+    pair = 3 * 4 + 1 + 2 * 8 + 4 + 1
+    batch = COL_BATCH * (2 * CODE_ROWS + OH_ROWS + MAX_GUIDE_ROWS * pair)
+    guides = MAX_GUIDE_ROWS * (4 * 4 * K_POSITIONS + OH_ROWS + 2 * K_COLS + 4)
+    build = SLAB * (2 * 4 + 2 * 4)
+    return cols * HIT_COL_BYTES + batch + guides + build
+
+
+def default_budget_bytes(device: torch.device, n: int) -> int:
+    """The code planes' share of the card's free memory for a database of
+    n targets: free memory less scan_reserve_bytes for the columns one
+    stage-1 launch scans. That is n when the planes fit resident; when they
+    do not, a slab of budget // (2 * CODE_ROWS) targets, so the budget is
+    solved from free - reserve(slab) = 2 * CODE_ROWS * slab."""
     free, _total = torch.cuda.mem_get_info(device)
-    if nbytes > free:
-        raise RuntimeError(
-            "the resident database planes need %.2f GB but %s has %.2f GB "
-            "free; streaming the database in slabs is not yet ported"
-            % (nbytes / 1e9, device, free / 1e9))
+    resident = free - scan_reserve_bytes(n)
+    if CODE_ROWS * n <= resident:
+        return resident
+    two_slabs = 2 * CODE_ROWS
+    return (free - scan_reserve_bytes(0)) * two_slabs // (two_slabs + HIT_COL_BYTES)
 
 
 class DeviceScanner:
-    """Holds one database resident on one device and scans guide batches
-    against it. Repeat scans reuse the uploaded planes."""
+    """Holds one database on one device and scans guide batches against it.
+
+    Resident (mode "resident", one slab) when its (32, N) int8 planes fit
+    in `budget` bytes: repeat scans reuse the uploaded planes. Otherwise it
+    streams (mode "streaming", self.codes None): every scan() uploads the
+    database in `slabs` target slabs of slab_n targets, two of which fit in
+    the budget, and scans them in ascending order, the guide blocks inside.
+
+    budget: bytes for the code planes alone. None means, on a card, its
+    free memory less the reserve one guide block's scan needs
+    (default_budget_bytes), and on the CPU no limit. A budget below two
+    slabs of SLAB_GRANULE targets raises ValueError, as long as the planes
+    do not fit it. Planes given (`planes`, from_planes) are always resident.
+
+    COST CONTRACT of the streaming mode, as flashfry_tpu's: every scan()
+    call uploads the whole database again (the slabs cycle through the same
+    two buffers), and splits its packed words on the host again, slab by
+    slab (split_words, the same host work as the resident build). On a
+    card the next slab's split, upload and expand are enqueued on a copy
+    stream before the current slab's guide blocks run, so the upload and
+    expand can overlap the scan; the host split does not. For a
+    max_mismatch sweep do not call scan() per mm value: one scan at the
+    largest mm yields every lower-mm hit with its exact count in the mm
+    column (an mm <= k hit set is a filter of the mm <= k + 1 set).
+    """
 
     def __init__(self, db: Database, device: Union[str, torch.device],
-                 planes: Optional[torch.Tensor] = None):
+                 planes: Optional[torch.Tensor] = None,
+                 budget: Optional[int] = None):
         self.device = resolve_device(device)
         self.db = db
         self.L = db.pack.total_scan_length
         self.n_act = len(db.pack.comparison_mask_positions())
         self.n = db.num_targets
         self.init_timings = {}
+        self.mode, self.slabs = "resident", 1
+        n_pad = max(self.n, 1)  # the kernel takes any width
         if planes is None:
-            n_pad = max(self.n, 1)  # the kernel takes any width
-            _fits_or_raise(CODE_ROWS * n_pad, self.device)
+            if budget is None and self.device.type == "cuda":
+                budget = default_budget_bytes(self.device, n_pad)
+            if budget is not None and CODE_ROWS * n_pad > budget:
+                self._plan_streaming(budget)
+                return
             t0 = time.perf_counter()
             planes = device_plane_codes(db.targets, self.L, n_pad, self.device)
             if self.device.type == "cuda":
@@ -238,6 +301,23 @@ class DeviceScanner:
             raise ValueError("planes beyond the database's %d targets must "
                              "hold PAD_CODE" % self.n)
         self.codes = planes.contiguous()
+
+    def _plan_streaming(self, budget: int) -> None:
+        """Streaming mode: the widest slab, a multiple of SLAB_GRANULE
+        targets, of which two fit in the budget."""
+        slab_n = budget // (2 * CODE_ROWS) // SLAB_GRANULE * SLAB_GRANULE
+        if slab_n == 0:
+            raise ValueError(
+                "a budget of %d bytes holds neither the database's %d bytes "
+                "of code planes nor two slabs of %d targets (%d bytes)"
+                % (budget, CODE_ROWS * max(self.n, 1), SLAB_GRANULE,
+                   2 * CODE_ROWS * SLAB_GRANULE))
+        self.codes = None
+        self.mode, self.slab_n = "streaming", slab_n
+        self.slabs = -(-self.n // slab_n)
+        logger.info("database planes need %d bytes, the budget is %d: "
+                    "streaming %d slabs of %d targets", CODE_ROWS * self.n,
+                    budget, self.slabs, slab_n)
 
     @classmethod
     def from_planes(cls, db: Database, planes: Union[np.ndarray, torch.Tensor],
@@ -258,16 +338,97 @@ class DeviceScanner:
         (bin pruning is lossless), so bin_mask is accepted for interface
         parity and ignored. Guides run in blocks of 128 up to
         MAX_GUIDE_ROWS rows, dealt round-robin (interleaved_blocks) so a
-        sorted repeat family does not land in one block."""
+        sorted repeat family does not land in one block. Streaming, the
+        blocks run inside each slab and stats count the first slab only,
+        which adds the whole database per block."""
         g_all = np.asarray(guide_longs, dtype=np.uint64)
         block = guide_block_rows(g_all.shape[0])
-        for idx in interleaved_blocks(g_all.shape[0], block):
-            if idx.size:
-                yield from self._scan_block(g_all[idx], idx, max_mismatch,
-                                            stats, block)
+        blocks = [idx for idx in interleaved_blocks(g_all.shape[0], block)
+                  if idx.size]
+        if self.codes is not None:
+            for idx in blocks:
+                yield from self._scan_block(self.codes, 0, self.n, g_all[idx],
+                                            idx, max_mismatch, stats, block)
+            return
+        for t_lo, codes, n_valid in self.stream_slabs():
+            for idx in blocks:
+                yield from self._scan_block(codes, t_lo, n_valid, g_all[idx],
+                                            idx, max_mismatch,
+                                            stats if t_lo == 0 else None, block)
 
-    def _scan_block(self, guide_longs: np.ndarray, idx: np.ndarray,
+    def stream_slabs(self):
+        """Yield (t_lo, codes, n_valid) per slab, ascending: codes is one of
+        two (32, slab_n) buffers holding targets [t_lo, t_lo + n_valid) and
+        PAD_CODE past them. The caller enqueues all of a slab's work on the
+        current stream before it asks for the next slab.
+
+        On a card, slab i + 1 is split on the host into one of two pinned
+        (lo, hi) pairs and uploaded and expanded on a copy stream before
+        slab i is handed out, and three event orders hold: the current
+        stream waits for a slab's `ready` event before it scans it; the
+        copy stream waits for buffer b's `done` event (slab i's work) before
+        it overwrites b with slab i + 2; the host waits for pair p's
+        `copied` event before it splits into p again. The buffers live until
+        the generator ends, which first waits for the card. On the CPU the
+        same loop runs without streams or events."""
+        dev, L, slab_n = self.device, self.L, self.slab_n
+        cuda = dev.type == "cuda"
+        bufs = [torch.empty((CODE_ROWS, slab_n), dtype=torch.int8, device=dev)
+                for _ in range(2)]
+        pairs = [tuple(torch.empty(slab_n, dtype=torch.int32, pin_memory=cuda)
+                       for _ in range(2)) for _ in range(2)]
+        if cuda:
+            compute = torch.cuda.current_stream(dev)
+            copy = torch.cuda.Stream(dev)
+            ready, done, copied = ([torch.cuda.Event() for _ in range(2)]
+                                   for _ in range(3))
+
+        def load(t_lo: int) -> None:
+            b = (t_lo // slab_n) % 2
+            n_valid = min(slab_n, self.n - t_lo)
+            lo_h, hi_h = pairs[b]
+            if cuda:
+                copied[b].synchronize()
+            lo, hi = split_words(self.db.targets[t_lo:t_lo + n_valid])
+            lo_h.numpy()[:n_valid] = lo
+            hi_h.numpy()[:n_valid] = hi
+            with torch.cuda.stream(copy) if cuda else contextlib.nullcontext():
+                if cuda:
+                    copy.wait_event(done[b])
+                for a in range(0, n_valid, SLAB):  # bounded device staging
+                    e = min(n_valid, a + SLAB)
+                    d_lo = lo_h[a:e].to(dev, non_blocking=True)
+                    d_hi = hi_h[a:e].to(dev, non_blocking=True)
+                    if cuda and e == n_valid:
+                        copied[b].record(copy)
+                    expand_codes(bufs[b], d_lo, d_hi, a, L)
+                # a reused buffer still holds an earlier slab past n_valid
+                bufs[b][:, n_valid:] = PAD_CODE
+                if cuda:
+                    ready[b].record(copy)
+
+        try:
+            starts = range(0, self.n, slab_n)
+            if starts:
+                load(0)
+            for i, t_lo in enumerate(starts):
+                b = i % 2
+                if i + 1 < len(starts):
+                    load(starts[i + 1])
+                if cuda:
+                    compute.wait_event(ready[b])
+                yield t_lo, bufs[b], min(slab_n, self.n - t_lo)
+                if cuda:
+                    done[b].record(compute)
+        finally:
+            if cuda:
+                torch.cuda.synchronize(dev)
+
+    def _scan_block(self, codes: torch.Tensor, base: int, n_valid: int,
+                    guide_longs: np.ndarray, idx: np.ndarray,
                     max_mismatch: int, stats, pad_to: int):
+        """Scan one guide block over codes, whose first n_valid columns hold
+        targets base..base + n_valid - 1; yields global target indices."""
         guide_oh, n_active, G = guide_onehot_matrix(guide_longs, self.db.pack,
                                                     pad_to=pad_to)
         if stats is not None:
@@ -281,14 +442,14 @@ class DeviceScanner:
         if thr <= 0:
             # every real target is within max_mismatch of every guide, even
             # one that matches no active position, which stage 1 cannot pass
-            cols = torch.arange(self.n, device=dev)
+            cols = torch.arange(n_valid, device=dev)
         else:
-            cols = torch.nonzero(stage1(self.codes, guide_i8, thr)).squeeze(1)
+            cols = torch.nonzero(stage1(codes, guide_i8, thr)).squeeze(1)
         for lo in range(0, cols.shape[0], COL_BATCH):
             c = cols[lo:lo + COL_BATCH]
-            mm = recount(self.codes, c, guide_i8, n_act)      # (n, G)
+            mm = recount(codes, c, guide_i8, n_act)           # (n, G)
             r, g = torch.nonzero(mm <= max_mismatch, as_tuple=True)
             if r.shape[0] == 0:
                 continue
-            yield (c[r].cpu().numpy(), idx[g.cpu().numpy()],
+            yield (c[r].cpu().numpy() + base, idx[g.cpu().numpy()],
                    mm[r, g].to(torch.int8).cpu().numpy())

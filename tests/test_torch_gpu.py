@@ -19,10 +19,13 @@ import chip_smoke
 from flashfry_tpu_torch import cli
 from flashfry_tpu_torch.database import build_database_from_sites, save_database
 from flashfry_tpu_torch.discovery import find_target_sites
-from flashfry_tpu_torch.engine import pruned_comparisons, pruned_comparisons_device
+from flashfry_tpu_torch.engine import (discover, pruned_comparisons,
+                                      pruned_comparisons_device)
+from flashfry_tpu_torch.ops import scan as scan_module
 from flashfry_tpu_torch.ops import scan_kernel as tk
 from flashfry_tpu_torch.ops import stage1_variants as sv
 from flashfry_tpu_torch.ops.scan import DeviceScanner, guide_onehot_matrix, plane_codes
+from flashfry_tpu_torch.ops.scan_kernel import CODE_ROWS
 from flashfry_tpu_torch.scoring import device as scoring_device
 from flashfry_tpu_torch.standards import Cas9NGGParameterPack, Cpf1ParameterPack
 from flashfry_tpu_torch.tools import experiment_stage1 as tool
@@ -220,6 +223,66 @@ def test_scanner_and_counter_on_cuda_match_host(cuda, pack):
     for k in (3, 4, 5):
         assert pruned_comparisons_device(db, guides, k, cuda) == \
             pruned_comparisons(db, guides, k)
+
+
+def scan_by_guide(scanner, guides, mm):
+    got = {}
+    for t_idx, g_idx, m in scanner.scan(guides, mm):
+        for t, g, k in zip(t_idx.tolist(), g_idx.tolist(), m.tolist()):
+            got.setdefault(g, []).append((t, k))
+    return got
+
+
+@pytest.mark.parametrize("mm", [3, 5])
+@pytest.mark.parametrize("pack", [Cas9NGGParameterPack, Cpf1ParameterPack],
+                         ids=lambda p: p.name)
+def test_streaming_scan_on_cuda_equals_resident(cuda, monkeypatch, pack, mm):
+    """Seven or more one-granule slabs through the two buffers, the copy stream
+    and its events, 128-row guide blocks (three) inside each: every buffer
+    and pinned pair is reused, so a missing wait shows as a wrong hit. Hits
+    per guide, in order, equal the resident scan's; K1 runs once per slab
+    and block."""
+    genome = random_genome(240_000 if pack is Cas9NGGParameterPack else 960_000,
+                           seed=23)
+    db = build_db(genome, pack)
+    guides = np.asarray(find_target_sites(iter([("g", genome[5000:45000])]),
+                                          pack).sequences)[:300]
+    monkeypatch.setattr(scan_module, "MAX_GUIDE_ROWS", 128)
+    resident = DeviceScanner(db, cuda)
+    assert resident.mode == "resident"  # the default budget holds it
+    want = scan_by_guide(resident, guides, mm)
+    stream = DeviceScanner(db, cuda, budget=2 * 32 * scan_module.SLAB_GRANULE)
+    assert stream.mode == "streaming" and stream.slabs >= 3
+    assert db.num_targets % stream.slab_n
+    before = tk.stage1.launches
+    got = scan_by_guide(stream, guides, mm)
+    assert tk.stage1.launches - before == stream.slabs * 3
+    assert got == want and sum(map(len, got.values())) > 0
+
+
+def test_streaming_discover_cli_on_cuda_byte_identical_to_numpy(cuda, tmp_path):
+    """engine.discover with a streaming scanner on the card writes the
+    numpy CLI's bytes, overflowing guides included."""
+    codes = chip_smoke.synthesize_genome(2, np.random.default_rng(2024))
+    db = build_db(np.frombuffer(b"ACGT", dtype=np.uint8)[codes].tobytes().decode(),
+                  Cas9NGGParameterPack)
+    db_path = str(tmp_path / "db")
+    save_database(db, db_path)
+    fasta = str(tmp_path / "g.fa")
+    chip_smoke.write_guides(fasta, db, chip_smoke.sample_guides(
+        db, 60, np.random.default_rng(3)))
+    stream = DeviceScanner(db, cuda, budget=CODE_ROWS * db.num_targets // 2)
+    assert stream.mode == "streaming" and stream.slabs >= 3
+    sites = cli.find_target_sites(cli.iterate_fasta(fasta), db.pack,
+                                  flanking_sequence=6, capture_context=True)
+    guides = discover(db, sites, max_mismatch=4, device=cuda, scanner=stream)
+    mine, ref = str(tmp_path / "t"), str(tmp_path / "n")
+    cli.write_output(mine, guides, db.bit_encoding(), db.bit_position(),
+                     models=(), write_ots=True, write_positions=True)
+    cli.run(["discover", "--fasta", fasta, "--database", db_path, "--positionOutput",
+             "--maxMismatch", "4", "--output", ref, "--backend", "numpy"])
+    assert any(g.full for g in guides)
+    assert filecmp.cmp(mine, ref, shallow=False)
 
 
 @pytest.mark.parametrize("pack", [Cas9NGGParameterPack, Cpf1ParameterPack],

@@ -4,8 +4,9 @@ A child process installs a meta-path hook that refuses every import of
 `jax`, `jaxlib`, the JAX package `flashfry_tpu` (exactly that top-level
 name; `flashfry_tpu_torch` is the port), `bench` and `tools`, then imports
 the port, its CLI, its experiment tool and chip_smoke.py, builds a database
-with the port's own host modules and runs a small discover and score through
-the port's CLI and the tool (X1 and X4 included) on the CPU.
+with the port's own host modules and runs a small discover, score, random
+and extract through the port's CLI, a streaming scan against the resident
+one, and the tool (X1 and X4 included) on the CPU.
 
 A static check walks every module of the port and chip_smoke.py: none may
 import those packages, nor name `flashfry_tpu` in what it hands a child
@@ -40,7 +41,7 @@ CHILD = textwrap.dedent("""
     import chip_smoke
     import flashfry_tpu_torch
     import flashfry_tpu_torch.__main__
-    from flashfry_tpu_torch import cli, device, engine
+    from flashfry_tpu_torch import cli, device, engine, extract, random_guides, refdict
     from flashfry_tpu_torch.ops import _build, scan, scan_kernel, stage1_variants
     from flashfry_tpu_torch.scoring import (aggregate, annotations, base, off_target,
                                             on_target, otbatch, rnafold)
@@ -53,7 +54,7 @@ CHILD = textwrap.dedent("""
     from flashfry_tpu_torch.standards import Cas9NGGParameterPack
 
     rng = np.random.default_rng(1)
-    genome = "".join("ACGT"[i] for i in rng.integers(0, 4, size=30000))
+    genome = "".join("ACGT"[i] for i in rng.integers(0, 4, size=80000))
     db = build_database_from_sites(
         find_target_sites(iter([("chrT", genome)]), Cas9NGGParameterPack), 7)
     with tempfile.TemporaryDirectory() as d:
@@ -65,6 +66,7 @@ CHILD = textwrap.dedent("""
                           "--output", os.path.join(d, "out"),
                           "--positionOutput", "--device", "cpu"])
         assert report["guides"] > 0 and os.path.getsize(os.path.join(d, "out"))
+        assert (report["scan_mode"], report["slabs"]) == ("resident", 1)
         assert cli.run(["discover", "--fasta", os.path.join(d, "g.fa"),
                         "--database", os.path.join(d, "db"),
                         "--output", os.path.join(d, "out_np"),
@@ -80,6 +82,19 @@ CHILD = textwrap.dedent("""
         with open(os.path.join(d, "scored_device"), "rb") as a, \
                 open(os.path.join(d, "scored_numpy"), "rb") as b:
             assert a.read() == b.read()
+        cli.run(["random", "--outputFile", os.path.join(d, "random.fa"),
+                 "--enzyme", "spcas9ngg", "--randomCount", "20", "--seed", "1"])
+        cli.run(["extract", "--binaryOTFile", os.path.join(d, "db"),
+                 "--outputFile", os.path.join(d, "extract.fa")])
+        for name in ("random.fa", "extract.fa"):
+            assert os.path.getsize(os.path.join(d, name)) > 0
+    guides = np.asarray(find_target_sites(iter([("g", genome[500:900])]),
+                                          Cas9NGGParameterPack).sequences)
+    stream = scan.DeviceScanner(db, "cpu", budget=2 * 32 * scan.SLAB_GRANULE)
+    assert stream.mode == "streaming" and stream.slabs >= 2
+    got = [np.concatenate(a) for a in zip(*stream.scan(guides, 4))]
+    want = [np.concatenate(a) for a in zip(*scan.DeviceScanner(db, "cpu").scan(guides, 4))]
+    assert got[0].size and all(np.array_equal(x, y) for x, y in zip(got, want))
     experiment_stage1.run(device="cpu", chunk=4096, G=64, reps=1)
     experiment_stage1.run(device="cpu", chunk=4096, G=256, reps=1,
                           variants_spec="1,bf,g2bf")
