@@ -40,6 +40,21 @@ each of which fails the run on any mismatch:
      seconds beside the resident scan and plane-build seconds;
   5c. the port's `random` (1000 targets, seed 1) and `extract` (phase 3's
      SpCas9-NGG database) CLIs, their output read back and checked;
+  5d. the same database sharded: (a) a virtual 2 db x 2 guides mesh on
+     cuda:0 (parallel/mesh.py): each shard's planes (2 x 23.9M targets,
+     once per (shard, guide sub-block)) equal the resident planes' columns,
+     with PAD_CODE past them; ShardedScanner.scan of the CLI's guides at
+     mm=4 gives phase 5's resident hits per guide in order, with one K1
+     launch per (shard, sub-block): 4 for the one 2048-row block, split
+     into 2 x 1024 rows; engine.discover on it writes phase 5's CLI bytes
+     with as many launches; K1 against its plain version on one shard at
+     the shard's shape, timed; its seconds beside the resident scan's;
+     (b) two processes of the port's discover CLI (`--coordinator
+     localhost:PORT --numProcesses 2 --processId {0,1}`, both on cuda:0,
+     parallel/multihost.py, a gloo group): both exit 0, process 0 writes
+     phase 5's CLI bytes and process 1 nothing, each report says
+     multihost, one shard of half the targets and K1 launches; their wall
+     seconds and gathered bytes;
   6. stage-1 variants at the experiment tool's size: the port's tool
      (`flashfry_tpu_torch.tools.experiment_stage1`) runs all twelve keys of
      the JAX tool on (32, 2^23) codes x 1024 guides and the (128, 2^23)
@@ -102,14 +117,24 @@ a torch.profiler pass):
 
     python3 -c 'import chip_smoke; chip_smoke.profile_main_path()'
     python3 -c 'import chip_smoke; chip_smoke.profile_streaming()'
+
+multi_card(), not run by main() either, runs phase 5d on a machine with
+several cards: discover on one card and sharded over all of them,
+the two scans in turns, K1 on each card, and the CLI in one process per
+card (and in two processes of half the cards each):
+
+    python3 -c 'import chip_smoke; chip_smoke.multi_card()'
 """
 
 from __future__ import annotations
 
+import contextlib
 import filecmp
 import json
 import os
+import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -128,6 +153,7 @@ from flashfry_tpu_torch.ops.scan import (  # noqa: E402
     PAD_CODE, SLAB, DeviceScanner, expand_codes, guide_block_rows,
     guide_onehot_matrix, interleaved_blocks, split_words)
 from flashfry_tpu_torch.ops import stage1_variants as sv  # noqa: E402
+from flashfry_tpu_torch.parallel.mesh import ShardedScanner, make_mesh  # noqa: E402
 from flashfry_tpu_torch.ops.scan_kernel import (  # noqa: E402
     _REF_ELEMS, CODE_ROWS, K_COLS, OH_ROWS, codes_onehot, codes_onehot_compact,
     compact_guides, guide_block_layout, launch, stage1, stage1_reference)
@@ -712,7 +738,8 @@ def phase_main_path() -> dict:
              "replaces": STAGE1_TPU, "launches": launches,
              "max_abs_err": err, **nums.pop(rows),
              "variants": {"rows_%d" % r: v for r, v in nums.items()}}
-    main = {"db": db, "fasta": fasta, "scanned": scanned, "out": out,
+    main = {"db": db, "db_path": db_path, "fasta": fasta, "scanned": scanned, "out": out,
+            "cli_s": wall,
             "resident": scanner, "hits": (t_idx, g_idx, mm), "scan_s": t_scan,
             "build_s": scanner.init_timings["codes_upload_expand_s"]}
     return entry, main
@@ -816,6 +843,177 @@ def phase_streaming(kernel: dict, main: dict) -> None:
         "%.3f), plain %.3f ms, library %.3f ms, bound %.3f ms (%s), bitwise equal"
         % (stream.slab_n, gi8.shape[0], (k1 + k2) / 2, k1, k2, (p1 + p2) / 2, lib,
            b["bound_ms"], b["bound_by"]))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def process_discover(db_path: str, fasta: str, tag: str, extra=(),
+                     visible=(None, None), timeout: float = 300) -> tuple:
+    """The port's discover CLI in len(visible) processes on DEVICE
+    (`--coordinator localhost:PORT --numProcesses N --processId i`),
+    process i seeing the cards visible[i] names (CUDA_VISIBLE_DEVICES;
+    None: every card), each with its own --output path in WORK; all must
+    exit 0 within `timeout` seconds (all are killed past it). Returns the
+    output paths, the reports (the CLI logs its report as JSON) and the
+    processes' wall seconds."""
+    coordinator = "localhost:%d" % free_port()
+    n = len(visible)
+    outs = [os.path.join(WORK, "%s.p%d.out" % (tag, pid)) for pid in range(n)]
+    t = time.perf_counter()
+    procs = []
+    for pid, cards in enumerate(visible):
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        if cards is not None:
+            env["CUDA_VISIBLE_DEVICES"] = cards
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "flashfry_tpu_torch", "discover", "--fasta", fasta,
+             "--database", db_path, "--output", outs[pid], "--positionOutput", *extra,
+             "--device", DEVICE, "--coordinator", coordinator, "--numProcesses", str(n),
+             "--processId", str(pid)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        done = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t
+    reports = []
+    for pid, (p, (_out, err)) in enumerate(zip(procs, done)):
+        if p.returncode != 0:
+            raise AssertionError("discover process %d exited %d:\n%s"
+                                 % (pid, p.returncode, err[-3000:]))
+        reports.append(json.loads(re.search(r"discover report: (\{.*\})", err).group(1)))
+    return outs, reports, wall
+
+
+def phase_sharded(kernel: dict, main: dict) -> None:
+    """Phase 5d: phase 5's database sharded. (a) On a virtual 2 x 2 mesh of
+    one card: each (shard, sub-block)'s planes equal the resident planes'
+    columns; the scan of the CLI's guides gives phase 5's resident hits per
+    guide in order with one K1 launch per (shard, sub-block); engine.discover
+    on it writes phase 5's CLI bytes; K1 against its plain version on one
+    shard, timed at the shard's shape. (b) The discover CLI in two processes
+    on the card: process 0 writes phase 5's CLI bytes, process 1 nothing."""
+    db, scanned, resident = main["db"], main["scanned"], main["resident"]
+    n = db.num_targets
+    card = "cuda:0" if DEVICE == "cuda" else DEVICE
+    t = time.perf_counter()
+    sharded = ShardedScanner(db, mesh=make_mesh([card] * 4))
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    t_build = time.perf_counter() - t
+    D, Gx, shard_n = sharded.D, sharded.Gx, sharded.shard_n
+    say("phase 5d sharded: a virtual %d db x %d guides mesh on %s, %d targets per "
+        "shard, %d bytes of planes per (shard, sub-block), built in %.4fs"
+        % (D, Gx, card, shard_n, CODE_ROWS * shard_n, t_build))
+    if (D, Gx) != (2, 2):
+        raise AssertionError("4 devices gave a %d x %d mesh" % (D, Gx))
+    for (s, q), planes in sharded.planes.items():
+        lo, nv = s * shard_n, sharded.shard_valid(s)
+        if not (torch.equal(planes[:, :nv], resident.codes[:, lo:lo + nv])
+                and bool((planes[:, nv:] == PAD_CODE).all())):
+            raise AssertionError("shard (%d, %d) differs from the resident planes" % (s, q))
+    say("  each of the %d (shard, sub-block) planes equals the resident planes' "
+        "columns, PAD_CODE past them" % len(sharded.planes))
+
+    block = sharded.block_rows(scanned.shape[0])
+    sub = block // Gx
+    idx = interleaved_blocks(scanned.shape[0], block)
+    want_launches = D * sum(1 for b in idx for q in range(Gx) if b[q * sub:(q + 1) * sub].size)
+    if (len(idx), block, want_launches) != (1, 2048, 4):
+        raise AssertionError("%d guides gave %d blocks of %d rows, %d launches"
+                             % (scanned.shape[0], len(idx), block, want_launches))
+    stage1.launches = 0
+    t = time.perf_counter()
+    hits = collect_hits(sharded, scanned, 4)
+    t_scan = time.perf_counter() - t
+    launches = stage1.launches
+    if launches != want_launches:
+        raise AssertionError("%d stage-1 launches in the sharded scan, not %d"
+                             % (launches, want_launches))
+    if not all(np.array_equal(a, b) for a, b in zip(per_guide(hits), per_guide(main["hits"]))):
+        raise AssertionError("the sharded scan's hits differ from the resident scan's")
+    say("  ShardedScanner.scan of the CLI's %d guides at mm=4 (one %d-row block, "
+        "%d x %d-row sub-blocks): %.4fs, %d hits == the resident scan's per guide in "
+        "order; %d stage-1 launches; resident scan %.4fs + planes build %.4fs"
+        % (scanned.shape[0], block, Gx, sub, t_scan, hits[0].size, launches,
+           main["scan_s"], main["build_s"]))
+
+    sites = cli.find_target_sites(cli.iterate_fasta(main["fasta"]), db.pack,
+                                  flanking_sequence=6, capture_context=True)
+    stage1.launches = 0
+    t = time.perf_counter()
+    guides = engine.discover(db, sites, max_mismatch=4, device=DEVICE, scanner=sharded)
+    t_discover = time.perf_counter() - t
+    discover_launches = stage1.launches
+    out = os.path.join(WORK, "g400_mm4_sharded.out")
+    cli.write_output(out, guides, db.bit_encoding(), db.bit_position(),
+                     models=(), write_ots=True, write_positions=True)
+    if discover_launches != want_launches:
+        raise AssertionError("%d stage-1 launches in the sharded discover" % discover_launches)
+    if not filecmp.cmp(out, main["out"], shallow=False):
+        raise AssertionError("sharded discover output differs from phase 5's CLI")
+    say("  engine.discover on the sharded scanner: %.4fs, %d stage-1 launches, %d "
+        "bytes identical to phase 5's CLI output"
+        % (t_discover, discover_launches, os.path.getsize(out)))
+
+    # K1 on shard 0, as the sharded scan launches it: sub-block 0's rows
+    thr = len(db.pack.comparison_mask_positions()) - 4
+    codes = sharded.planes[0, 0]
+    oh, _, _ = guide_onehot_matrix(scanned[idx[0][:sub]], db.pack, pad_to=sub)
+    gi8 = guide_block_layout(torch.from_numpy(oh).to(codes.device), db.pack.total_scan_length)
+    ref = stage1_reference(codes, gi8, thr)
+    err = max_abs_err(stage1(codes, gi8, thr), ref, "stage1 on shard 0")
+    p1 = cuda_ms(lambda: stage1_reference(codes, gi8, thr), 3)
+    k1 = cuda_ms(lambda: stage1(codes, gi8, thr), 10)
+    k2 = cuda_ms(lambda: stage1(codes, gi8, thr), 10)
+    p2 = cuda_ms(lambda: stage1_reference(codes, gi8, thr), 3)
+    lib = library_ms(prebuilt_onehot(codes, codes_onehot_compact), compact_guides(gi8),
+                     lambda m: m.amax(dim=1) >= thr, ref)
+    b = k1_bound(codes, gi8.shape[0])
+    entry = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **b, "library_ms": lib,
+             "kernel_only_ms": k1_kernel_only_ms(codes, compact_guides(gi8), thr, ref),
+             "launches": launches, "mesh": [D, Gx], "shard_n": shard_n,
+             "build_s": t_build, "scan_s": t_scan, "discover_s": t_discover,
+             "resident_scan_s": main["scan_s"], "resident_build_s": main["build_s"]}
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
+    kernel["variants"]["sharded_shard"] = entry
+    say("  stage1 at the shard's (32, %d) x (%d, 128): kernel %.3f ms (%.3f, %.3f), "
+        "plain %.3f ms, library %.3f ms, bound %.3f ms (%s), bitwise equal"
+        % (shard_n, gi8.shape[0], entry["ms"], k1, k2, entry["plain_ms"], lib,
+           b["bound_ms"], b["bound_by"]))
+    del sharded, codes, gi8, ref
+
+    outs, reports, wall = process_discover(main["db_path"], main["fasta"], "g400_mh",
+                                           ("--maxMismatch", "4"))
+    if not filecmp.cmp(outs[0], main["out"], shallow=False):
+        raise AssertionError("process 0's output differs from phase 5's CLI")
+    if os.path.exists(outs[1]):
+        raise AssertionError("process 1 wrote an output")
+    for pid, r in enumerate(reports):
+        if ((r["scan_mode"], r["shards"], r["shard_n"], r["process"])
+                != ("multihost", [2, 1], -(-n // 2), pid)
+                or r["stage1_launches"] < (DEVICE == "cuda")):
+            raise AssertionError("process %d's report: %s" % (pid, json.dumps(r)))
+        say("  discover process %d: scan %.4fs, planes of its shard %.4fs, counter "
+            "%.4fs, collect %.4fs, write %.4fs; %d stage-1 launches; gathered %d bytes "
+            "in %d calls" % (pid, r["scan_s"], r["upload_expand_s"], r["counter_s"],
+                             r["collect_s"], r["write_s"], r["stage1_launches"],
+                             r["gathered_bytes"], r["gather_calls"]))
+    say("  two discover processes on %s: %.4fs wall, their start included (phase "
+        "5's CLI in process: %.4fs); process 0 wrote %d bytes identical to phase 5's "
+        "CLI output, process 1 none"
+        % (card, wall, main["cli_s"], os.path.getsize(outs[0])))
+    entry["two_processes"] = {"wall_s": wall, "scan_s": [r["scan_s"] for r in reports],
+                              "launches": [r["stage1_launches"] for r in reports],
+                              "gathered_bytes": reports[0]["gathered_bytes"],
+                              "gather_calls": reports[0]["gather_calls"]}
 
 
 def phase_host_commands() -> None:
@@ -1443,6 +1641,138 @@ def profile_streaming(reps: int = 3) -> None:
         shutil.rmtree(WORK, ignore_errors=True)
 
 
+def multi_card(reps: int = 3) -> None:
+    """Phase 5d on a machine with several cards. Not part of main(), which
+    needs one card:
+
+        python3 -c 'import chip_smoke; chip_smoke.multi_card()'
+
+    On phase 5's database and guides at mm = 4: engine.discover on one card
+    ("cuda:0", resident) and on every card ("cuda", which shards over them),
+    in turns, and the discover CLI with `--device cuda`, byte for byte; the
+    resident scan on cuda:0
+    and the ShardedScanner over every card, `reps` times each in turns, hits
+    per guide in order; K1 against its plain version on each (shard,
+    sub-block)'s card, timed there; then the CLI in one process per card
+    (CUDA_VISIBLE_DEVICES) and, with four cards or more, in two processes
+    of half the cards each, process 0's bytes against the one-card CLI's.
+    Prints seconds, launches and gathered bytes; fails on any mismatch."""
+    cards = torch.cuda.device_count() if DEVICE == "cuda" else 4
+    if DEVICE == "cuda" and cards < 2:
+        raise SystemExit("multi_card needs two or more CUDA cards, found %d" % cards)
+    first = "cuda:0" if DEVICE == "cuda" else DEVICE
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    try:
+        phase_device()
+        phase_build()
+        db_path, db, fasta, _longs, scanned, _t_gen, t_index = main_path_inputs()
+        say("multi_card: %d cards; %d Mbp, %d targets, index %.4fs; %d guide sites"
+            % (cards, MAIN_MB, db.num_targets, t_index, scanned.shape[0]))
+        sites = cli.find_target_sites(cli.iterate_fasta(fasta), db.pack,
+                                      flanking_sequence=6, capture_context=True)
+        outs = {first: os.path.join(WORK, "one.out"), DEVICE: os.path.join(WORK, "every.out")}
+        for dev in (first, DEVICE, DEVICE, first):
+            stage1.launches = 0
+            t = time.perf_counter()
+            guides = engine.discover(db, sites, max_mismatch=4, device=dev)
+            wall = time.perf_counter() - t
+            cli.write_output(outs[dev], guides, db.bit_encoding(), db.bit_position(),
+                             models=(), write_ots=True, write_positions=True)
+            say("  engine.discover on %s, its scanner built inside: %.4fs, %d stage-1 "
+                "launches" % (dev, wall, stage1.launches))
+        if not filecmp.cmp(outs[first], outs[DEVICE], shallow=False):
+            raise AssertionError("the sharded discover's output differs from one card's")
+        cli_out = os.path.join(WORK, "cli.out")
+        t = time.perf_counter()
+        r = cli.run(["discover", "--fasta", fasta, "--database", db_path, "--positionOutput",
+                     "--maxMismatch", "4", "--output", cli_out, "--device", DEVICE])
+        wall = time.perf_counter() - t
+        if DEVICE == "cuda" and (r["scan_mode"] != "sharded" or r["stage1_launches"] < 1):
+            raise AssertionError("--device %s: %s" % (DEVICE, json.dumps(r)))
+        if not filecmp.cmp(outs[first], cli_out, shallow=False):
+            raise AssertionError("the discover CLI's output differs from one card's")
+        say("  discover CLI --device %s: %.4fs wall; %s" % (DEVICE, wall, json.dumps(r)))
+        say("  %s, every card and the CLI wrote the same %d bytes"
+            % (first, os.path.getsize(outs[first])))
+
+        resident = DeviceScanner(db, first)
+        t = time.perf_counter()
+        sharded = ShardedScanner(db, mesh=make_mesh(
+            [torch.device("cuda", i) for i in range(cards)] if DEVICE == "cuda"
+            else [DEVICE] * cards))
+        for dev in {dev for row in sharded.mesh for dev in row}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        say("  ShardedScanner over a %d x %d mesh: planes of %d targets per shard "
+            "built in %.4fs" % (sharded.D, sharded.Gx, sharded.shard_n,
+                                time.perf_counter() - t))
+        want = per_guide(collect_hits(resident, scanned, 4))
+        times = {"resident": [], "sharded": []}
+        launches = {}
+        for _ in range(reps):
+            for name in ("resident", "sharded", "sharded", "resident"):
+                stage1.launches = 0
+                t = time.perf_counter()
+                hits = collect_hits(resident if name == "resident" else sharded, scanned, 4)
+                times[name].append(time.perf_counter() - t)
+                launches[name] = stage1.launches
+                if not all(np.array_equal(a, b) for a, b in zip(per_guide(hits), want)):
+                    raise AssertionError("the %s scan's hits differ" % name)
+        say("  scans of the CLI's guides, in turns, hits per guide equal: resident "
+            "on %s %s s; sharded %s s; stage-1 launches per scan %s"
+            % (first, json.dumps(times["resident"]), json.dumps(times["sharded"]),
+               json.dumps(launches)))
+
+        thr = len(db.pack.comparison_mask_positions()) - 4
+        block = sharded.block_rows(scanned.shape[0])
+        sub = block // sharded.Gx
+        idx = interleaved_blocks(scanned.shape[0], block)[0]
+        for (s, q), planes in sharded.planes.items():
+            rows = idx[q * sub:(q + 1) * sub]
+            if not rows.size:
+                continue
+            oh, _, _ = guide_onehot_matrix(scanned[rows], db.pack, pad_to=sub)
+            gi8 = guide_block_layout(torch.from_numpy(oh).to(planes.device),
+                                     db.pack.total_scan_length)
+            max_abs_err(stage1(planes, gi8, thr), stage1_reference(planes, gi8, thr),
+                        "stage1 on shard (%d, %d)" % (s, q))
+            with (torch.cuda.device(planes.device) if DEVICE == "cuda"
+                  else contextlib.nullcontext()):
+                ms = cuda_ms(lambda: stage1(planes, gi8, thr), 10)
+            say("  stage1 on shard (%d, %d), %s, (32, %d) x (%d, 128): %.3f ms, "
+                "bitwise equal to plain" % (s, q, planes.device, sharded.shard_n, sub, ms))
+        del sharded, resident
+
+        layouts = [tuple(str(i) for i in range(cards))]
+        if cards >= 4 and cards % 2 == 0:
+            half = cards // 2
+            layouts.append((",".join(map(str, range(half))),
+                            ",".join(map(str, range(half, cards)))))
+        for visible in layouts:
+            files, reports, wall = process_discover(db_path, fasta, "mc%d" % len(visible),
+                                                    ("--maxMismatch", "4"), visible)
+            if not filecmp.cmp(files[0], outs[first], shallow=False):
+                raise AssertionError("process 0's output differs from one card's")
+            if any(os.path.exists(f) for f in files[1:]):
+                raise AssertionError("a process other than 0 wrote an output")
+            for pid, r in enumerate(reports):
+                if DEVICE == "cuda" and (r["scan_mode"] != "multihost"
+                                         or r["shards"][0] * r["shards"][1] != cards
+                                         or r["stage1_launches"] < 1):
+                    raise AssertionError("process %d's report: %s" % (pid, json.dumps(r)))
+            say("  %d discover processes (cards %s): %.4fs wall; process 0 wrote the "
+                "one-card bytes; mesh %s; scan s %s; planes s %s; gathered %d bytes in "
+                "%d calls; stage-1 launches %s"
+                % (len(visible), "/".join(visible), wall, reports[0]["shards"],
+                   json.dumps([r["scan_s"] for r in reports]),
+                   json.dumps([r["upload_expand_s"] for r in reports]),
+                   reports[0]["gathered_bytes"], reports[0]["gather_calls"],
+                   [r["stage1_launches"] for r in reports]))
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -1458,6 +1788,7 @@ def main() -> int:
         phase_byte_identity()
         kernel, main_path = phase_main_path()
         phase_streaming(kernel, main_path)
+        phase_sharded(kernel, main_path)
         del main_path
         phase_host_commands()
         variant_kernels, timed = phase_variants()

@@ -11,13 +11,20 @@ device backend (the default) runs the off-target descriptor pass on
 `--device`, the other two score on the host, and all three write
 byte-identical output. FLASHFRY_TPU_SCORE_BACKEND, set to one of the three
 names, is the default of `--backend`. `random` and `extract` are copies of
-flashfry_tpu's host-only commands. Multi-process discover is not ported
-yet.
+flashfry_tpu's host-only commands.
+
+discover on several processes: run the same command once per process with
+`--coordinator HOST:PORT --numProcesses N --processId I` (parallel/
+multihost.py). The processes join a gloo group served by process 0 at
+HOST:PORT, each scans its share of the database's shards on its own
+`--device` and all of them gather every hit; only process 0 writes
+`--output`.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -27,8 +34,9 @@ from typing import Optional
 from .database import load_database
 from .device import DEVICES, resolve_device
 from .discovery import find_target_sites
-from .engine import BACKENDS, ScanStats, discover
+from .engine import BACKENDS, ScanStats, default_scanner, discover
 from .ops.scan import DeviceScanner
+from .ops.scan_kernel import stage1
 from .scoring.otbatch import BACKENDS as SCORE_BACKENDS
 from .targetio import write_output
 from .utils import iterate_fasta
@@ -67,11 +75,14 @@ def _add_discover(sub):
                         "numpy host scan")
     p.add_argument("--device", default="cuda", choices=DEVICES,
                    help="device of the torch scan (default cuda)")
-    # multi-process discover is not ported: parsed so the flags are
-    # recognised, then rejected
-    p.add_argument("--coordinator", default=None, help="not yet ported")
-    p.add_argument("--numProcesses", type=int, default=None, help="not yet ported")
-    p.add_argument("--processId", type=int, default=None, help="not yet ported")
+    # several processes: the same command once per process; the database
+    # is sharded over every process's devices and process 0 writes
+    p.add_argument("--coordinator", default=None,
+                   help="multi-process: host:port of process 0's gloo group")
+    p.add_argument("--numProcesses", type=int, default=None,
+                   help="multi-process: total number of processes")
+    p.add_argument("--processId", type=int, default=None,
+                   help="multi-process: this process's id (0-based)")
     return p
 
 
@@ -172,11 +183,19 @@ def cmd_index(args) -> None:
 
 def cmd_discover(args) -> dict:
     """Run discover; returns a report of phase seconds and counts (also
-    logged)."""
-    if (args.coordinator is not None or args.numProcesses is not None
-            or args.processId is not None):
-        raise SystemExit("--coordinator/--numProcesses/--processId: "
-                         "multi-process discover is not yet ported")
+    logged as JSON). With --coordinator every process scans and returns its
+    report; only process 0 writes --output."""
+    multi = args.coordinator is not None
+    if multi:
+        # the numpy oracle has no multi-process form: honouring --backend
+        # numpy here would hand the user something else, so reject it
+        if args.backend == "numpy":
+            raise SystemExit("--coordinator (multi-host) requires the device "
+                             "scan; --backend numpy is single-process only")
+        if args.numProcesses is None or args.processId is None:
+            raise SystemExit("--coordinator requires --numProcesses and --processId")
+    elif args.numProcesses is not None or args.processId is not None:
+        raise SystemExit("--numProcesses and --processId require --coordinator")
     if not (0.0 <= args.minGC <= 1.0 and 0.0 <= args.maxGC <= 1.0):
         raise SystemExit("--minGC and --maxGC must lie in [0, 1]")
     device = None
@@ -186,6 +205,15 @@ def cmd_discover(args) -> dict:
         except RuntimeError as e:
             raise SystemExit("flashfry_tpu_torch: %s" % e)
 
+    if not multi:
+        return _discover(args, device, multi)
+    from .parallel import multihost
+    with multihost.process_group(args.coordinator, args.numProcesses,
+                                 args.processId):
+        return _discover(args, device, multi)
+
+
+def _discover(args, device, multi: bool) -> dict:
     report = {"backend": args.backend,
               "device": str(device) if device is not None else "host"}
     t = time.perf_counter()
@@ -200,16 +228,31 @@ def cmd_discover(args) -> dict:
     report["guide_sites_s"] = time.perf_counter() - t
 
     scanner = None
-    report.update(scan_mode="host", slabs=0)
+    report.update(scan_mode="host", slabs=0, shards=[0, 0], shard_n=0,
+                  process=0, gathered_bytes=0, gather_calls=0)
     if device is not None:
         t = time.perf_counter()
-        scanner = DeviceScanner(db, device)
+        if multi:
+            from .parallel import multihost
+            scanner = multihost.MultiHostScanner(
+                db, mesh=multihost.make_global_mesh(device))
+            report.update(scan_mode="multihost", process=args.processId)
+        else:
+            scanner = default_scanner(db, device)
         report["upload_expand_s"] = time.perf_counter() - t
-        report.update(scan_mode=scanner.mode, slabs=scanner.slabs)
+        if isinstance(scanner, DeviceScanner):
+            report.update(scan_mode=scanner.mode, slabs=scanner.slabs,
+                          shards=[1, 1], shard_n=db.num_targets)
+        else:
+            report.update(slabs=1, shards=[scanner.D, scanner.Gx],
+                          shard_n=scanner.shard_n)
+            if not multi:
+                report["scan_mode"] = "sharded"
 
     logger.info("Scanning %d candidate guides against the genome database...",
                 len(gsites))
     stats = ScanStats()
+    launches = stage1.launches
     guides = discover(db, gsites,
                       max_mismatch=args.maxMismatch,
                       maximum_off_targets=args.maximumOffTargets,
@@ -221,11 +264,16 @@ def cmd_discover(args) -> dict:
     logger.info("Performed a total of %s guide to target comparisons in %.3fs",
                 format(stats.all_comparisons, ","), stats.scan_seconds)
     t = time.perf_counter()
-    write_output(args.output, guides, db.bit_encoding(), db.bit_position(),
-                 models=(), write_ots=True,
-                 write_positions=args.positionOutput)
+    if not multi or args.processId == 0:
+        write_output(args.output, guides, db.bit_encoding(), db.bit_position(),
+                     models=(), write_ots=True,
+                     write_positions=args.positionOutput)
+    if multi:
+        report.update(gathered_bytes=scanner.dcn_allgather_bytes,
+                      gather_calls=scanner.dcn_allgather_calls)
     report.update(
         write_s=time.perf_counter() - t,
+        stage1_launches=stage1.launches - launches,
         counter_s=stats.counter_seconds,
         collect_s=stats.collect_seconds,
         scan_s=stats.scan_seconds - stats.counter_seconds - stats.collect_seconds,
@@ -233,7 +281,7 @@ def cmd_discover(args) -> dict:
         overflowed_guides=sum(1 for g in guides if g.full),
         all_comparisons=stats.all_comparisons,
         dense_comparisons=stats.dense_comparisons)
-    logger.info("discover report: %s", report)
+    logger.info("discover report: %s", json.dumps(report))
     return report
 
 

@@ -6,7 +6,8 @@ comparison counter, the numpy XOR/popcount scan (`backend="numpy"`, the
 host oracle) and the overflow-cap hit collection (_collect_hits, native
 C++). What runs on the device is the logged comparison counter
 (pruned_comparisons_device) and the scan (ops.scan.DeviceScanner, resident
-or streaming the database in slabs).
+or streaming the database in slabs, or parallel.mesh.ShardedScanner over
+several devices or processes).
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ from .utils import gc_content
 
 from .device import resolve_device
 from .ops.scan import DeviceScanner
+from .parallel.mesh import ShardedScanner, pick_devices
 
-__all__ = ["ScanStats", "discover", "pruned_comparisons",
+__all__ = ["ScanStats", "default_scanner", "discover", "pruned_comparisons",
            "pruned_comparisons_device"]
 
 BACKENDS = ("torch", "numpy")
@@ -303,11 +305,24 @@ def pruned_comparisons_device(db: Database, guide_longs: np.ndarray,
     return int(total)
 
 
-def _check_scanner(scanner: DeviceScanner, db: Database,
+def default_scanner(db: Database, device: torch.device
+                    ) -> Union[DeviceScanner, ShardedScanner]:
+    """The scanner discover builds for `device`: a ShardedScanner over every
+    visible card for a bare "cuda" when there are several (as flashfry_tpu
+    shards over every device of its platform), else a DeviceScanner."""
+    if (device.type == "cuda" and device.index is None
+            and torch.cuda.device_count() > 1):
+        return ShardedScanner(db, devices=pick_devices("cuda"))
+    return DeviceScanner(db, device)
+
+
+def _check_scanner(scanner: Union[DeviceScanner, ShardedScanner], db: Database,
                    device: torch.device) -> None:
     """A scanner built from a different database would silently
     scan the wrong genome: identity or a cheap content fingerprint (ends and
-    total position count, O(1) even on memory-mapped arrays) must match."""
+    total position count, O(1) even on memory-mapped arrays) must match. A
+    DeviceScanner must live on `device`, a ShardedScanner on devices of its
+    type."""
     sdb = scanner.db
     same = sdb is db or (
         sdb.num_targets == db.num_targets
@@ -317,7 +332,11 @@ def _check_scanner(scanner: DeviceScanner, db: Database,
                  and sdb.targets[-1] == db.targets[-1])))
     if not same:
         raise ValueError("scanner was built from a different database")
-    if scanner.device != device:
+    if isinstance(scanner, ShardedScanner):
+        if scanner.device_type != device.type:
+            raise ValueError("sharded scanner lives on %s devices, discover "
+                             "was asked for %s" % (scanner.device_type, device))
+    elif scanner.device != device:
         raise ValueError("scanner lives on %s, discover was asked "
                          "for %s" % (scanner.device, device))
 
@@ -330,16 +349,20 @@ def discover(db: Database, guide_sites: DiscoveredSites,
              backend: str = "torch",
              stats: Optional[ScanStats] = None,
              device: Union[str, torch.device] = "cuda",
-             scanner: Optional[DeviceScanner] = None) -> List[GuideWithOffTargets]:
+             scanner: Optional[Union[DeviceScanner, ShardedScanner]] = None
+             ) -> List[GuideWithOffTargets]:
     """Run the discover phase; returns guides in output order.
 
     backend "torch" scans on `device` (a missing card raises); "numpy" is
     the host scan of flashfry_tpu's numpy backend (bin-pruned XOR/popcount,
     _scan_numpy), which ignores device and scanner. scanner: a
     DeviceScanner of this database, resident (repeat calls skip the upload)
-    or streaming; one built from another database raises ValueError.
-    Without one, discover builds DeviceScanner(db, device), which streams
-    when the planes do not fit in the card's free memory."""
+    or streaming, or a ShardedScanner (parallel/mesh.py; its
+    MultiHostScanner yields every process's hits); one built from another
+    database raises ValueError. Without one, discover builds
+    default_scanner(db, device): a ShardedScanner over every card for a
+    bare "cuda" on a machine with several, else a DeviceScanner, which
+    streams when the planes do not fit in the card's free memory."""
     if backend not in BACKENDS:
         raise ValueError("backend must be one of %s, got %r"
                          % (", ".join(BACKENDS), backend))
@@ -396,7 +419,7 @@ def discover(db: Database, guide_sites: DiscoveredSites,
             db, guide_longs, max_mismatch, dev)
         stats.counter_seconds = time.time() - t_cnt
     if scanner is None:
-        scanner = DeviceScanner(db, dev)
+        scanner = default_scanner(db, dev)
     _collect_hits(db, guides, scanner.scan(guide_longs, max_mismatch,
                                            None, stats), stats)
     if force_linear:

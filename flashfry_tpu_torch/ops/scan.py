@@ -16,6 +16,8 @@ scanned over those codes in three steps:
      guides, keep mm <= max_mismatch, and emit (target, guide, mm) in
      row-major order of the (columns, guides) mask.
 
+Step 1 is launch_block, steps 2 and 3 are collect_block: a sharded scan
+(parallel/mesh.py) launches stage 1 on every shard before it collects any.
 Row-major order over ascending columns is target-major within each guide,
 and streaming scans its slabs in ascending order, outside the guide
 blocks: per guide, hits arrive in global target order, the order FlashFry
@@ -30,7 +32,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import time
-from typing import Iterator, Optional, Tuple, Union
+from typing import Iterator, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -274,7 +276,6 @@ class DeviceScanner:
         self.device = resolve_device(device)
         self.db = db
         self.L = db.pack.total_scan_length
-        self.n_act = len(db.pack.comparison_mask_positions())
         self.n = db.num_targets
         self.init_timings = {}
         self.mode, self.slabs = "resident", 1
@@ -429,27 +430,63 @@ class DeviceScanner:
                     max_mismatch: int, stats, pad_to: int):
         """Scan one guide block over codes, whose first n_valid columns hold
         targets base..base + n_valid - 1; yields global target indices."""
-        guide_oh, n_active, G = guide_onehot_matrix(guide_longs, self.db.pack,
-                                                    pad_to=pad_to)
         if stats is not None:
             stats.all_targets += self.n
             stats.all_targets_and_positions += int(self.db.pos_offsets[-1])
-            stats.dense_comparisons += self.n * G
-        dev = self.device
-        guide_i8 = guide_block_layout(torch.from_numpy(guide_oh).to(dev), self.L)
-        n_act = torch.from_numpy(n_active).to(dev, torch.int32)
-        thr = self.n_act - max_mismatch
-        if thr <= 0:
-            # every real target is within max_mismatch of every guide, even
-            # one that matches no active position, which stage 1 cannot pass
-            cols = torch.arange(n_valid, device=dev)
-        else:
-            cols = torch.nonzero(stage1(codes, guide_i8, thr)).squeeze(1)
-        for lo in range(0, cols.shape[0], COL_BATCH):
-            c = cols[lo:lo + COL_BATCH]
-            mm = recount(codes, c, guide_i8, n_act)           # (n, G)
-            r, g = torch.nonzero(mm <= max_mismatch, as_tuple=True)
-            if r.shape[0] == 0:
-                continue
-            yield (c[r].cpu().numpy() + base, idx[g.cpu().numpy()],
-                   mm[r, g].to(torch.int8).cpu().numpy())
+            stats.dense_comparisons += self.n * guide_longs.shape[0]
+        yield from collect_block(
+            codes, launch_block(codes, guide_longs, self.db.pack, max_mismatch,
+                                pad_to),
+            base, n_valid, idx, max_mismatch)
+
+
+class Launched(NamedTuple):
+    """One guide block's stage 1 over one codes tensor, enqueued on its
+    device: the block-layout guides, their active counts (_PAD_MM for the
+    padding rows) and the hit bytes, or None when every real column is a
+    hit column."""
+    guide_i8: torch.Tensor
+    n_active: torch.Tensor
+    hits: Optional[torch.Tensor]
+
+
+def launch_block(codes: torch.Tensor, guide_longs: np.ndarray,
+                 pack: ParameterPack, max_mismatch: int,
+                 pad_to: int) -> Launched:
+    """The launch half of one guide block's scan over codes: upload the
+    guides to codes' device in block layout, padded to pad_to rows, and
+    enqueue stage 1. It reads nothing back but stage1's guide check, so the
+    caller can launch on every shard before it collects any."""
+    guide_oh, n_active, _G = guide_onehot_matrix(guide_longs, pack, pad_to=pad_to)
+    dev = codes.device
+    guide_i8 = guide_block_layout(torch.from_numpy(guide_oh).to(dev),
+                                  pack.total_scan_length)
+    n_act = torch.from_numpy(n_active).to(dev, torch.int32)
+    thr = len(pack.comparison_mask_positions()) - max_mismatch
+    # thr <= 0: every real target is within max_mismatch of every guide, even
+    # one that matches no active position, which stage 1 cannot pass
+    hits = stage1(codes, guide_i8, thr) if thr > 0 else None
+    return Launched(guide_i8, n_act, hits)
+
+
+def collect_block(codes: torch.Tensor, launched: Launched, base: int,
+                  n_valid: int, idx: np.ndarray, max_mismatch: int):
+    """The collect half: the hit columns (torch.nonzero, ascending; every
+    one of the first n_valid columns when stage 1 was skipped), then stage 2
+    per COL_BATCH columns. codes' first n_valid columns hold targets base..
+    base + n_valid - 1 and idx maps the block's rows to guide indices;
+    yields (global target int64, guide int64, mm int8) in row-major order
+    of each batch's (columns, guides) mask."""
+    guide_i8, n_act, hits = launched
+    if hits is None:
+        cols = torch.arange(n_valid, device=codes.device)
+    else:
+        cols = torch.nonzero(hits).squeeze(1)
+    for lo in range(0, cols.shape[0], COL_BATCH):
+        c = cols[lo:lo + COL_BATCH]
+        mm = recount(codes, c, guide_i8, n_act)               # (n, G)
+        r, g = torch.nonzero(mm <= max_mismatch, as_tuple=True)
+        if r.shape[0] == 0:
+            continue
+        yield (c[r].cpu().numpy() + base, idx[g.cpu().numpy()],
+               mm[r, g].to(torch.int8).cpu().numpy())

@@ -186,9 +186,20 @@ def test_device_cuda_without_cuda_exits_with_a_message(repeat_db, monkeypatch):
 
 
 def test_multi_process_flags_are_rejected(repeat_db):
+    """--coordinator with --backend numpy, or without --numProcesses, stops
+    with flashfry_tpu's message (its CLI raises SystemExit and
+    AssertionError), before any process group is joined; so do
+    --numProcesses and --processId without --coordinator."""
     _d, db_path, fasta = repeat_db
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["discover", "--fasta", fasta, "--database", db_path,
-                  "--output", os.devnull, "--device", "cpu",
-                  "--coordinator", "localhost:1234", "--numProcesses", "2",
-                  "--processId", "0"])
+    base = ["discover", "--fasta", fasta, "--database", db_path,
+            "--output", os.devnull, "--coordinator", "localhost:1"]
+    for extra in (["--numProcesses", "2", "--processId", "0", "--backend", "numpy"],
+                  ["--processId", "0"]):
+        with pytest.raises((SystemExit, AssertionError)) as want:
+            jax_cli.main(base + extra)
+        with pytest.raises(SystemExit) as got:
+            cli.main(base + extra + ["--device", "cpu"])
+        assert str(got.value) == str(want.value) and "--coordinator" in str(got.value)
+    for extra in (["--numProcesses", "2"], ["--processId", "0"]):
+        with pytest.raises(SystemExit, match="require --coordinator"):
+            cli.main(base[:-2] + extra + ["--device", "cpu"])

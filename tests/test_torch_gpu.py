@@ -26,6 +26,7 @@ from flashfry_tpu_torch.ops import scan_kernel as tk
 from flashfry_tpu_torch.ops import stage1_variants as sv
 from flashfry_tpu_torch.ops.scan import DeviceScanner, guide_onehot_matrix, plane_codes
 from flashfry_tpu_torch.ops.scan_kernel import CODE_ROWS
+from flashfry_tpu_torch.parallel.mesh import ShardedScanner, make_mesh
 from flashfry_tpu_torch.scoring import device as scoring_device
 from flashfry_tpu_torch.standards import Cas9NGGParameterPack, Cpf1ParameterPack
 from flashfry_tpu_torch.tools import experiment_stage1 as tool
@@ -258,6 +259,55 @@ def test_streaming_scan_on_cuda_equals_resident(cuda, monkeypatch, pack, mm):
     got = scan_by_guide(stream, guides, mm)
     assert tk.stage1.launches - before == stream.slabs * 3
     assert got == want and sum(map(len, got.values())) > 0
+
+
+@pytest.mark.parametrize("pack", [Cas9NGGParameterPack, Cpf1ParameterPack],
+                         ids=lambda p: p.name)
+def test_sharded_scan_on_a_virtual_mesh_of_one_card_equals_resident(cuda, pack):
+    """A 2 db x 2 guides mesh on cuda:0: each (shard, sub-block)'s planes are
+    the resident planes' columns with PAD_CODE past them, the hits per guide
+    in order are the resident scan's, and K1 runs once per (shard,
+    sub-block) of the one 1024-row block (512 + 88 guides)."""
+    genome = random_genome(400_000, seed=25)
+    db = build_db(genome, pack)
+    guides = np.asarray(find_target_sites(iter([("g", genome[5000:45000])]),
+                                          pack).sequences)[:600]
+    assert guides.shape[0] == 600
+    resident = DeviceScanner(db, cuda)
+    want = scan_by_guide(resident, guides, 4)
+    sharded = ShardedScanner(db, mesh=make_mesh(["cuda:0"] * 4))
+    for (s, q), planes in sharded.planes.items():
+        lo, nv = s * sharded.shard_n, sharded.shard_valid(s)
+        assert torch.equal(planes[:, :nv], resident.codes[:, lo:lo + nv])
+        assert bool((planes[:, nv:] == scan_module.PAD_CODE).all())
+    before = tk.stage1.launches
+    got = scan_by_guide(sharded, guides, 4)
+    assert tk.stage1.launches - before == 4
+    assert got == want and sum(map(len, got.values())) > 0
+
+
+def test_two_process_discover_cli_on_cuda_byte_identical_to_numpy(cuda, tmp_path, monkeypatch):
+    """The discover CLI in two processes on the card (a gloo group): process
+    0 writes the numpy CLI's bytes, process 1 nothing, and each launched K1
+    on its own shard."""
+    genome = random_genome(200_000, seed=27)
+    db = build_db(genome, Cas9NGGParameterPack)
+    db_path = str(tmp_path / "db")
+    save_database(db, db_path)
+    fasta = tmp_path / "g.fa"
+    fasta.write_text(">g\n" + genome[1000:3000] + "\n")
+    monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cuda")
+    outs, reports, _wall = chip_smoke.process_discover(
+        db_path, str(fasta), "mh", ("--maxMismatch", "4"))
+    ref = str(tmp_path / "n")
+    cli.run(["discover", "--fasta", str(fasta), "--database", db_path, "--positionOutput",
+             "--maxMismatch", "4", "--output", ref, "--backend", "numpy"])
+    assert filecmp.cmp(outs[0], ref, shallow=False) and os.path.getsize(ref)
+    assert not os.path.exists(outs[1])
+    for pid, r in enumerate(reports):
+        assert (r["scan_mode"], r["shards"], r["process"]) == ("multihost", [2, 1], pid)
+        assert r["stage1_launches"] >= 1 and r["gathered_bytes"] > 0
 
 
 def test_streaming_discover_cli_on_cuda_byte_identical_to_numpy(cuda, tmp_path):

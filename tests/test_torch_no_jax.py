@@ -5,8 +5,8 @@ A child process installs a meta-path hook that refuses every import of
 name; `flashfry_tpu_torch` is the port), `bench` and `tools`, then imports
 the port, its CLI, its experiment tool and chip_smoke.py, builds a database
 with the port's own host modules and runs a small discover, score, random
-and extract through the port's CLI, a streaming scan against the resident
-one, and the tool (X1 and X4 included) on the CPU.
+and extract through the port's CLI, a streaming and a sharded scan against
+the resident one, and the tool (X1 and X4 included) on the CPU.
 
 A static check walks every module of the port and chip_smoke.py: none may
 import those packages, nor name `flashfry_tpu` in what it hands a child
@@ -43,6 +43,7 @@ CHILD = textwrap.dedent("""
     import flashfry_tpu_torch.__main__
     from flashfry_tpu_torch import cli, device, engine, extract, random_guides, refdict
     from flashfry_tpu_torch.ops import _build, scan, scan_kernel, stage1_variants
+    from flashfry_tpu_torch.parallel import mesh, multihost
     from flashfry_tpu_torch.scoring import (aggregate, annotations, base, off_target,
                                             on_target, otbatch, rnafold)
     from flashfry_tpu_torch.scoring import device as scoring_device
@@ -95,6 +96,9 @@ CHILD = textwrap.dedent("""
     got = [np.concatenate(a) for a in zip(*stream.scan(guides, 4))]
     want = [np.concatenate(a) for a in zip(*scan.DeviceScanner(db, "cpu").scan(guides, 4))]
     assert got[0].size and all(np.array_equal(x, y) for x, y in zip(got, want))
+    sharded = mesh.ShardedScanner(db, mesh=mesh.make_mesh(["cpu"] * 4))
+    got = [np.concatenate(a) for a in zip(*sharded.scan(guides, 4))]
+    assert all(np.array_equal(x, y) for x, y in zip(got, want))
     experiment_stage1.run(device="cpu", chunk=4096, G=64, reps=1)
     experiment_stage1.run(device="cpu", chunk=4096, G=256, reps=1,
                           variants_spec="1,bf,g2bf")
