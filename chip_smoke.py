@@ -12,8 +12,8 @@ each of which fails the run on any mismatch:
      together (timed, with ptxas report);
   3. kernel vs its plain PyTorch version, bitwise, for all six enzymes,
      every thr from 1 to the active positions, guide blocks of 1, 15, 16,
-     17, 100, 128 and 2048 rows and 512 super rows, a ragged N and padding
-     columns, one counted launch per call;
+     17, 100, 127, 128, 129, 256, 257, 1152 and 2048 rows and 512 super
+     rows, a ragged N and padding columns, one counted launch per call;
   4. 20 Mbp repeat-rich genome: the port's discover CLI output on the card
      is byte-identical to the port's own `--backend numpy` CLI (the host
      XOR/popcount scan, which the CPU tests hold byte for byte to
@@ -27,7 +27,8 @@ each of which fails the run on any mismatch:
      32-guide byte check against the numpy CLI, stage-1 launches > 0, and
      stage-1 kernel vs plain, bitwise and timed, with its bound and library
      call, at the main path's shape (the CLI's 2048-row guide block x the
-     whole database) and at 1024 rows;
+     whole database), at 1152 rows (the CLI's guides in a block padded to a
+     multiple of 128 rows) and at 1024 rows;
   5b. the same database streamed through the card in target slabs, at
      bench.py's certification budget (CODE_ROWS x N / 2 bytes of planes,
      >= 3 slabs): every slab the double-buffered build hands out equals the
@@ -169,9 +170,16 @@ WORK = os.path.join(ROOT, "_smoke_work")
 DEVICE = "cuda"
 SMALL_MB, MAIN_MB, MAIN_GUIDES = 20, 400, 1000
 STAGE1_TPU = "flashfry_tpu/ops/scan_kernel.py:79"
-# phase 3's guide blocks: rows around the kernel's 16-row m-tile, the
-# discover blocks, and the tool's paired rows
-PHASE3_ROWS = (1, 15, 16, 17, 100, 128, "512 super rows", 2048)
+# phase 3's guide blocks: rows around compact_guides' 16-row padding and the
+# kernel's 128-row n-tile, the discover blocks (1152: 1059 guides padded to a
+# multiple of 128 rows, 9 n-tiles), and the tool's paired rows
+PHASE3_ROWS = (1, 15, 16, 17, 100, 127, 128, 129, 256, 257, "512 super rows", 1152,
+               2048)
+# K1's design, named in its kernels-line entry
+K1_DESIGN = ("wgmma m64n128k32 s8 x s8 -> s32: targets as M (A, one-hot words "
+             "built in registers from the code bytes), the whole guide block "
+             "(<= 2048 x 96 B) staged once per block in shared memory as N (B), "
+             "max and >= thr folded in registers; 4 warpgroups, one block per SM")
 VARIANT_CHUNK, VARIANT_GUIDES = tool.CHUNK, tool.GUIDES  # the tool's own size
 KERNEL_LIBS = ("stage1", "stage1_variants", "descriptors")
 VARIANTS_SRC = "flashfry_tpu_torch/csrc/stage1_variants.cu"
@@ -572,7 +580,7 @@ def phase_kernel_vs_plain() -> int:
         n, L = db.num_targets, db.pack.total_scan_length
         n_act = len(db.pack.comparison_mask_positions())
         scanner = DeviceScanner(db, DEVICE)
-        # ragged width (not a multiple of the kernel's 64-target warp tile)
+        # ragged width (not a multiple of the kernel's 64-target m-tile)
         # with 1001 PAD_CODE columns after the real targets
         extra = 1001 + (1 if (n + 1001) % 64 == 0 else 0)
         codes = torch.cat([scanner.codes[:, :n],
@@ -698,11 +706,12 @@ def phase_main_path() -> dict:
     byte_check(db_path, sub, "g400_mm4_32g", ("--maxMismatch", "4"))
 
     # stage 1 over the whole database: the CLI's 2048-row guide block (the
-    # main path's launch), then 1024 rows of it
+    # main path's launch), its guides in 1152 rows (a block padded to a
+    # multiple of 128 rows), then 1024 rows of it
     thr = max(len(db.pack.comparison_mask_positions()) - 4, 1)
     L = db.pack.total_scan_length
     timed, blocks, err, nums = {}, {}, 0, {}
-    for g_rows, g in ((rows, scanned), (1024, scanned[:1024])):
+    for g_rows, g in ((rows, scanned), (1152, scanned), (1024, scanned[:1024])):
         oh, _, _ = guide_onehot_matrix(g, db.pack, pad_to=g_rows)
         gi8 = guide_block_layout(torch.from_numpy(oh).to(DEVICE), L)
         got = stage1(scanner.codes, gi8, thr)
@@ -733,7 +742,7 @@ def phase_main_path() -> dict:
             "columns), library call %.3f ms"
             % (g_rows, b["bound_ms"], b["bound_by"], b["bound_ms_128"], lib))
     del oh, blocks
-    entry = {"name": "stage1", "route": "cuda",
+    entry = {"name": "stage1", "route": "cuda", "design": K1_DESIGN,
              "source": "flashfry_tpu_torch/csrc/stage1.cu",
              "replaces": STAGE1_TPU, "launches": launches,
              "max_abs_err": err, **nums.pop(rows),

@@ -17,63 +17,68 @@
 // What bounds it on Hopper: int8 operations. The product is 2 x 96 x G x n
 // operations as done here (2 x 128 x G x n as the TPU kernel counts them):
 // 1.88e13 at the main path's (32, 47.8M) x 2048 rows, 9.5 ms at the H100's
-// published 1,979 TOP/s, against ~0.5 ms for the 1.6 GB of codes and
-// output bytes at 3.35 TB/s.
+// published 1,979 TOP/s, against ~0.35 ms for the 1.2 GB of code rows it
+// reads and its output bytes at 3.35 TB/s. Only wgmma reaches that rate.
 //
-// Design. mma.sync.m16n8k32 (s8 x s8 -> s32) with the guides as A (16 rows
-// per m-tile) and the targets as B (8 per n-tile), K = 96 in three k-steps.
-//  - A: each block stages its whole guide block once into shared memory
-//    with cp.async (2048 x 96 B = 196,608 B; the 128-column layout, 262,144
-//    B, would not fit a block's 232,448 B). Row r's 16-byte chunk c is
-//    stored at chunk c * g_rows + r (chunk-major), so the eight rows one
-//    ldmatrix phase reads are 128 contiguous bytes: no bank conflicts, and
-//    no swizzle is needed. A fragments are loaded with ldmatrix.x4.
-//  - B is never in memory as a one-hot. In the m16n8k32 B fragment lane l
-//    holds k-rows 4(l%4)+{0..3} and 16+4(l%4)+{0..3} of target column l/4;
-//    with K interleaved (column 4i+b), each such 4-byte group is the one-hot
-//    of one position, `c < 4 ? 1 << 8c : 0`. So per k-step s a lane reads
-//    the code bytes of positions 8s+l%4 and 8s+4+l%4 of its target and
-//    shifts; PAD_CODE columns and the ragged tail past n give zero
-//    fragments and can never hit. The code bytes come straight from device
-//    memory (read once through L1, 24 of 32 rows) into registers, not
-//    through a double-buffered shared-memory tile: each warp owns 64
-//    targets (8 n-tiles) at a time, and while one warp waits for its bytes
-//    the other three of its SM sub-partition multiply, so warps never wait
-//    on each other after the staging barrier and the ragged width needs no
-//    alignment.
-//  - The max stays in registers and is never formed as a max. C starts at
-//    -thr, so a count reaches thr iff its sum is >= 0; each lane ANDs the
-//    sums of its two targets across rows g, g+8 of every m-tile (one
-//    3-input LOP3 per target per m-tile). The AND's sign bit is set iff no
-//    guide reached thr: zero padding rows (sum -thr < 0) change nothing.
-//    After the last m-tile three __shfl_xor_sync fold the 8 lane groups,
-//    and each target's byte is written once, 64 contiguous bytes per warp.
-//    There is no early exit.
-//  - One persistent block of 16 warps per SM (126 registers, no spills);
-//    warps stride over 64-target tiles. Super rows (two 1s per position)
-//    multiply exactly, since a target holds one base per position.
+// Design: wgmma.mma_async m64n128k32 s8 x s8 -> s32 with the TARGETS as M
+// (A, from registers) and the GUIDES as N (B, from shared memory), K = 96
+// in three k-steps. The TPU kernel's guides-by-targets order is not kept.
+//  - B: each block stages its whole guide block once into shared memory
+//    with cp.async (2048 x 96 B = 196,608 B of a block's 232,448 B), zero
+//    rows up to the 128-row n-tile. Row r's 16-byte chunk c lies at chunk
+//    c * rows + r (chunk-major): the no-swizzle K-major layout of
+//    wgmma_s8.cuh, lbo = 16 * rows, sbo = 128. A zero row counts 0 < thr
+//    and never hits. Every target meets every guide row in one pass.
+//  - A is never in memory as a one-hot. In the k32 A fragment lane (g, t)
+//    of warp w holds k-bytes 4t.. and 16+4t.. of targets 16w+g and
+//    16w+g+8; with K interleaved (column 4i+b) each such 4-byte group is
+//    the one-hot of one position, `c < 4 ? 1 << 8c : 0`. So per k-step s a
+//    lane reads the code bytes of positions 8s+t and 8s+4+t of its two
+//    targets (24 of the 32 code rows, straight from device memory through
+//    L1, one m-tile ahead into registers) and shifts. PAD_CODE columns and
+//    the ragged tail past n give zero words and can never hit. No TMA or
+//    cp.async tile of codes: its 16-byte rows would need n % 16 == 0, and
+//    the code bytes take 4% of the bound's time at the main path, where
+//    these loads already leave the kernel at 94% of the bound.
+//  - The max stays in registers. Each thread holds two targets x 32 guides
+//    of an n-tile's accumulators and folds them with __vimax3_s32 (one
+//    Hopper VIMNMX3 per two counts) into running maxima from 0; after the
+//    last n-tile two __shfl_xor_sync take the max over the four lanes of a
+//    target, and one byte per target is written (>= thr). There is no early
+//    exit.
+//  - The fold overlaps the tensor cores across warpgroups: each warpgroup
+//    issues an n-tile's three wgmma, waits for them (wait_group 0) and
+//    folds, and the block's four warpgroups take turns on the SM's tensor
+//    cores. A second accumulator set per warpgroup, to issue n-tile j+1
+//    before folding n-tile j, made ptxas serialize the wgmma (its C7514
+//    report) and ran slower.
+//  - A persistent grid of one block (four warpgroups, 512 threads) per SM;
+//    warpgroups stride over 64-target m-tiles. Super rows (two 1s per
+//    position) multiply exactly, since a target holds one base per
+//    position.
+// tests/test_torch_scan_kernel.py models the A words, the descriptor reads,
+// the accumulator map and the fold in numpy.
 //
-// On an H100 80GB HBM3 at 700 W, chip_smoke.py times it at 20.6 ms at the
-// main path's 2048 rows (PERF.md): 9.1e14 of the 96-column operations per
-// second, about half the published int8 peak, which is what one m16n8k32
-// per 8 clocks per SM sub-partition would give. The rest of the peak needs
-// wgmma. Each warp holds exactly 8 n-tiles: lane group g writes n-tile g.
+// On an H100 80GB HBM3 at 700 W, chip_smoke.py times it at 10.5-10.7 ms at
+// the main path's 2048 rows through stage1 (89-91% of the bound; 10.2-10.3
+// ms, 93-94%, for the launcher alone), against 20.48 ms for the mma.sync
+// m16n8k32 design it replaced, in turns on the same card (PERF.md). 103
+// registers a thread, no spills.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "mma_s8.cuh"
+#include "wgmma_s8.cuh"
 
 namespace {
 
-using ff_mma::ldmatrix_x4;
-using ff_mma::mma_s8;
+using ff_wgmma::kAcc;
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kNTiles = 8;                   // n-tiles of 8 targets per warp
-static_assert(kNTiles == 8, "lane group g writes n-tile g");
-constexpr int kWarpTargets = 8 * kNTiles;
+constexpr int kWgThreads = 128;              // one warpgroup
+constexpr int kWarpGroups = 4;
+constexpr int kThreads = kWarpGroups * kWgThreads;
+constexpr int kMTile = 64;                   // targets per warpgroup m-tile
+constexpr int kNTile = ff_wgmma::kN;         // guide rows per wgmma: 128
 constexpr int kPositions = 24;               // K = 4 x 24 = 96
 constexpr int kK = 4 * kPositions;
 constexpr int kKSteps = kK / 32;
@@ -82,26 +87,59 @@ constexpr int kCodesPerLane = 2 * kKSteps;   // positions per lane per target
 constexpr int kMaxRows = 2048;
 constexpr int kPadCode = 4;
 
-// one position's one-hot as a B-fragment word: byte b = (code == b)
+// one position's one-hot as an A-fragment word: byte b = (code == b)
 __device__ __forceinline__ uint32_t onehot4(int c) {
   return static_cast<unsigned>(c) < 4u ? 1u << (8 * c) : 0u;
 }
 
-// lane (g, t)'s B fragments for the warp tile at t0: b[j][2s + h] is the
-// one-hot of position 8s + 4h + t of target t0 + 8j + g (k-step s,
-// fragment register h); targets past n are padding
-__device__ __forceinline__ void load_fragments(uint32_t (&b)[kNTiles][kCodesPerLane],
-                                               const int8_t* __restrict__ codes,
-                                               long long n, long long t0, int g,
-                                               int t) {
+// the code bytes lane (g, t) of warp w needs for the m-tile whose target
+// 16w + g is col: c[v][q] = position t + 4q of target col + 8v; targets
+// past n are padding. `lane_codes` is codes + t * n.
+__device__ __forceinline__ void load_codes(int (&c)[2][kCodesPerLane],
+                                           const int8_t* __restrict__ lane_codes,
+                                           long long n, long long col) {
 #pragma unroll
-  for (int j = 0; j < kNTiles; ++j) {
-    const long long col = t0 + 8 * j + g;
+  for (int v = 0; v < 2; ++v) {
 #pragma unroll
     for (int q = 0; q < kCodesPerLane; ++q) {
-      b[j][q] = onehot4(col < n ? __ldg(codes + static_cast<long long>(t + 4 * q) * n + col)
-                                : kPadCode);
+      c[v][q] = col + 8 * v < n
+                    ? __ldg(lane_codes + static_cast<long long>(4 * q) * n + col + 8 * v)
+                    : kPadCode;
     }
+  }
+}
+
+// three k-steps of n-tile `tile` into d, committed as one group. The
+// empty asm on a keeps the A words' definitions before wgmma.fence: a
+// register operand defined after it makes ptxas insert a warpgroup.arrive
+// of its own and serialize the wgmma (its C7519/C7520 reports).
+__device__ __forceinline__ void issue(int (&d)[kAcc], uint32_t (&a)[kKSteps][4],
+                                      const uint64_t (&desc)[kKSteps], int tile) {
+  ff_wgmma::fence_operands(d);
+#pragma unroll
+  for (int s = 0; s < kKSteps; ++s) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(a[s][k]) :: "memory");
+  }
+  ff_wgmma::fence();
+#pragma unroll
+  for (int s = 0; s < kKSteps; ++s) {
+    // the descriptor's start address counts 16-byte units: n-tile j starts
+    // kNTile rows of 16 bytes on
+    ff_wgmma::mma_s8_rs(d, a[s], desc[s] + static_cast<uint64_t>(tile * kNTile), s);
+  }
+  ff_wgmma::commit_group();
+}
+
+// run[v][h] = max(run[v][h], the counts of target row g + 8v in d); d[4j],
+// d[4j+1] are row g, d[4j+2], d[4j+3] row g + 8 (wgmma_s8.cuh); two
+// runners per row halve the dependent chain
+__device__ __forceinline__ void fold(int (&run)[2][2], int (&d)[kAcc]) {
+  ff_wgmma::fence_operands(d);
+#pragma unroll
+  for (int j = 0; j < kAcc / 4; ++j) {
+    run[0][j & 1] = __vimax3_s32(run[0][j & 1], d[4 * j], d[4 * j + 1]);
+    run[1][j & 1] = __vimax3_s32(run[1][j & 1], d[4 * j + 2], d[4 * j + 3]);
   }
 }
 
@@ -109,76 +147,75 @@ __global__ void __launch_bounds__(kThreads, 1)
 stage1_kernel(const int8_t* __restrict__ codes, long long n,
               const int8_t* __restrict__ guides, int g_rows, int thr,
               int8_t* __restrict__ out) {
-  extern __shared__ __align__(16) int8_t s_guides[];  // [kChunks][g_rows][16]
+  extern __shared__ __align__(16) int8_t s_guides[];  // [kChunks][rows][16]
   const uint32_t s_base =
       static_cast<uint32_t>(__cvta_generic_to_shared(s_guides));
-  for (int q = threadIdx.x; q < g_rows * kChunks; q += kThreads) {
+  const int rows = (g_rows + kNTile - 1) / kNTile * kNTile;
+  for (int q = threadIdx.x; q < rows * kChunks; q += kThreads) {
     const int r = q / kChunks;
-    const uint32_t dst = s_base + ((q - r * kChunks) * g_rows + r) * 16;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(dst), "l"(guides + 16 * static_cast<long long>(q)));
+    const uint32_t off = ((q - r * kChunks) * rows + r) * 16;
+    if (r < g_rows) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                   :: "r"(s_base + off), "l"(guides + 16 * static_cast<long long>(q)));
+    } else {
+      *reinterpret_cast<uint4*>(s_guides + off) = make_uint4(0u, 0u, 0u, 0u);
+    }
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+  ff_wgmma::fence_proxy_async();
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
+  const int wl = threadIdx.x % kWgThreads;
+  const int warp = wl >> 5;
+  const int lane = wl & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  // ldmatrix.x4: lanes 8i..8i+7 address matrix i = rows 8(i&1)+{0..7},
-  // k-bytes 16(i>>1)..+15 of the k-step; the four registers are the A
-  // fragment {row g, row g+8} x {k 4t.., k 16+4t..}
-  uint32_t a_addr[kKSteps];
+  uint64_t desc[kKSteps];
 #pragma unroll
   for (int s = 0; s < kKSteps; ++s) {
-    a_addr[s] = s_base + ((2 * s + (lane >> 4)) * g_rows + (lane & 15)) * 16;
+    desc[s] = ff_wgmma::smem_desc(s_base + 2 * s * rows * 16, 16 * rows, 128);
   }
-  const int m_tiles = g_rows / 16;
+  const int n_tiles = rows / kNTile;
+  const int8_t* lane_codes = codes + static_cast<long long>(t) * n;
 
-  const long long n_tiles = (n + kWarpTargets - 1) / kWarpTargets;
-  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
-  long long wt = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  for (; wt < n_tiles; wt += stride) {
-    uint32_t b[kNTiles][kCodesPerLane];
-    load_fragments(b, codes, n, wt * kWarpTargets, g, t);
-
-    uint32_t run[kNTiles][2];
+  const long long m_tiles = (n + kMTile - 1) / kMTile;
+  const long long stride = static_cast<long long>(gridDim.x) * kWarpGroups;
+  long long mt = static_cast<long long>(blockIdx.x) * kWarpGroups + threadIdx.x / kWgThreads;
+  const int row = 16 * warp + g;  // the thread's first target in an m-tile
+  int c[2][kCodesPerLane];
+  if (mt < m_tiles) load_codes(c, lane_codes, n, mt * kMTile + row);
+  for (; mt < m_tiles; mt += stride) {
+    // a[s][v + 2h] = the one-hot of position 8s + 4h + t of target row + 8v
+    uint32_t a[kKSteps][4];
 #pragma unroll
-    for (int j = 0; j < kNTiles; ++j) run[j][0] = run[j][1] = 0xFFFFFFFFu;
-#pragma unroll 2
-    for (int m = 0; m < m_tiles; ++m) {
-      uint32_t a[kKSteps][4];
+    for (int s = 0; s < kKSteps; ++s) {
 #pragma unroll
-      for (int s = 0; s < kKSteps; ++s) ldmatrix_x4(a[s], a_addr[s] + m * 256);
-#pragma unroll
-      for (int j = 0; j < kNTiles; ++j) {
-        int d[4];
-        mma_s8(d, a[0], b[j][0], b[j][1], -thr);
-#pragma unroll
-        for (int s = 1; s < kKSteps; ++s) mma_s8(d, a[s], b[j][2 * s], b[j][2 * s + 1]);
-        // d0, d2: target 2t (rows g, g+8); d1, d3: target 2t+1
-        run[j][0] &= static_cast<uint32_t>(d[0]) & static_cast<uint32_t>(d[2]);
-        run[j][1] &= static_cast<uint32_t>(d[1]) & static_cast<uint32_t>(d[3]);
+      for (int h = 0; h < 2; ++h) {
+        a[s][2 * h] = onehot4(c[0][2 * s + h]);
+        a[s][2 * h + 1] = onehot4(c[1][2 * s + h]);
       }
     }
+    if (mt + stride < m_tiles) load_codes(c, lane_codes, n, (mt + stride) * kMTile + row);
 
-    // fold the 8 lane groups (guide rows g = lane / 4); lane (g, t) then
-    // writes targets 2t, 2t+1 of n-tile g
-    uint32_t r0 = 0, r1 = 0;
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        run[j][0] &= __shfl_xor_sync(0xFFFFFFFFu, run[j][0], off);
-        run[j][1] &= __shfl_xor_sync(0xFFFFFFFFu, run[j][1], off);
-      }
-      if (j == g) {
-        r0 = run[j][0];
-        r1 = run[j][1];
-      }
+    int run[2][2] = {{0, 0}, {0, 0}};
+    for (int j = 0; j < n_tiles; ++j) {
+      int d[kAcc];  // k-step 0 overwrites, the others add
+      issue(d, a, desc, j);
+      ff_wgmma::wait_group<0>();
+      fold(run, d);
     }
-    const long long col = wt * kWarpTargets + 8 * g + 2 * t;
-    if (col < n) out[col] = static_cast<int>(r0) >= 0;
-    if (col + 1 < n) out[col + 1] = static_cast<int>(r1) >= 0;
+
+    // the max over the four lanes t of a target; lane t = 0 writes target
+    // row, t = 1 target row + 8
+    int r0 = max(run[0][0], run[0][1]);
+    int r1 = max(run[1][0], run[1][1]);
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      r0 = max(r0, __shfl_xor_sync(0xFFFFFFFFu, r0, off));
+      r1 = max(r1, __shfl_xor_sync(0xFFFFFFFFu, r1, off));
+    }
+    const long long col = mt * kMTile + row + 8 * t;
+    if (t < 2 && col < n) out[col] = (t ? r1 : r0) >= thr;
   }
 }
 
@@ -202,7 +239,7 @@ extern "C" int ff_stage1_launch(const void* codes, long long n,
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int smem = g_rows * kK;
+  const int smem = (g_rows + kNTile - 1) / kNTile * kNTile * kK;
   err = cudaFuncSetAttribute(stage1_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -212,7 +249,7 @@ extern "C" int ff_stage1_launch(const void* codes, long long n,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long long need =
-      ((n + kWarpTargets - 1) / kWarpTargets + kWarps - 1) / kWarps;
+      ((n + kMTile - 1) / kMTile + kWarpGroups - 1) / kWarpGroups;
   const long long resident = static_cast<long long>(sms) * per_sm;
   const int grid = static_cast<int>(need < resident ? need : resident);
   stage1_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

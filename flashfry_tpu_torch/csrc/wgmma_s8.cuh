@@ -1,7 +1,8 @@
-// Inline-PTX helpers of the int8 warpgroup tensor-core kernel (X1, X2, X5
-// and X6 in stage1_variants.cu): the shared-memory matrix descriptor, the
-// fences, and wgmma.mma_async m64n128k32 s8 x s8 -> s32 with both operands
-// in shared memory. sm_90a only.
+// Inline-PTX helpers of the int8 warpgroup tensor-core kernels (K1 in
+// stage1.cu; X1, X2, X3, X5 and X6 in stage1_variants.cu): the
+// shared-memory matrix descriptor, the fences, and wgmma.mma_async
+// m64n128k32 s8 x s8 -> s32 with A in shared memory (mma_s8) or in
+// registers (mma_s8_rs), B in shared memory. sm_90a only.
 //
 // Layout the descriptor describes (no swizzle, K-major, which 8-bit
 // operands must be): a core matrix is 8 rows x 16 bytes, its rows 16 bytes
@@ -89,6 +90,43 @@ __device__ __forceinline__ void mma_s8(int (&d)[kAcc], uint64_t desc_a, uint64_t
         "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d)
+      : "memory");
+}
+
+// The same product with A in registers: a[0..3] are the thread's words of
+// the 64 x 32 s8 A tile, four s8 each (byte b = column k + b); thread l of
+// warp w of the warpgroup, g = l / 4, t = l % 4, holds
+//   a[0] (row 16w + g,     k 4t..4t+3)
+//   a[1] (row 16w + g + 8, k 4t..4t+3)
+//   a[2] (row 16w + g,     k 16+4t..16+4t+3)
+//   a[3] (row 16w + g + 8, k 16+4t..16+4t+3)
+// (the A fragment of mma.sync m16n8k32, one per warp); d as in mma_s8.
+// a must not change until the wgmma's group has been waited for.
+__device__ __forceinline__ void mma_s8_rs(int (&d)[kAcc], const uint32_t (&a)[4],
+                                          uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d)
       : "memory");
 }
 

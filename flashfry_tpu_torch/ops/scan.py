@@ -51,7 +51,7 @@ _PAD_MM = 127        # mismatch count of guide padding rows (never a hit)
 COL_BATCH = 16384    # hit columns recounted per stage-2 batch
 SLAB = 1 << 22       # targets uploaded and expanded per step of the plane build
 SLAB_GRANULE = 1 << 12  # a streaming slab's width is a multiple of this many
-                        # targets: 64 of K1's 64-target warp tiles
+                        # targets: 64 of K1's 64-target m-tiles
 HIT_COL_BYTES = 1 + 8   # per column one stage-1 launch scans: its hit byte, and
                         # the int64 index torch.nonzero gives a hit column
                         # (every column can hit)

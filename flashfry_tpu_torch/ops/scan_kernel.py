@@ -9,7 +9,7 @@ reach, and the scan skips stage 1).
 
 `stage1` is the wrapper: a CPU tensor goes to the plain PyTorch version
 `stage1_reference`; a CUDA tensor launches the hand-written int8
-tensor-core kernel in `csrc/stage1.cu` (its header says what bounds it on
+`wgmma` kernel in `csrc/stage1.cu` (its header says what bounds it on
 Hopper and how the design answers that) on the guides `compact_guides`
 makes, or raises. `stage1.launches` counts kernel launches.
 `matches_reference`, `check_inputs` and `launch` serve the stage-1
@@ -29,7 +29,7 @@ OH_ROWS = 4 * CODE_ROWS  # one-hot width in block layout (column b*32+i)
 MAX_GUIDE_ROWS = 2048   # largest guide block the kernel takes
 K_POSITIONS = 24        # positions the kernel multiplies (every enzyme's L <= 24)
 K_COLS = 4 * K_POSITIONS  # its K: compacted guide columns
-M_TILE = 16             # guide rows per tensor-core m-tile
+M_TILE = 16             # compact_guides pads the guide rows to a multiple of this
 # column 4i+b of the compacted guides is block column b*32+i
 _COMPACT_COLS = [b * CODE_ROWS + i for i in range(K_POSITIONS) for b in range(4)]
 
@@ -55,8 +55,9 @@ def codes_onehot(codes_T: torch.Tensor) -> torch.Tensor:
 
 def codes_onehot_compact(codes_T: torch.Tensor) -> torch.Tensor:
     """(T, 32) int8 codes -> (T, 96) int8, column 4i+b = (code_i == b) for
-    i < K_POSITIONS: the target operand csrc/stage1.cu builds in registers,
-    whose product with compact_guides' rows is the block-layout product."""
+    i < K_POSITIONS: the target operand (wgmma's A) csrc/stage1.cu builds
+    in registers, whose product with compact_guides' rows is the
+    block-layout product."""
     c = codes_T[:, :K_POSITIONS]
     bases = torch.arange(4, dtype=c.dtype, device=c.device)
     return (c.unsqueeze(2) == bases).reshape(c.shape[0], K_COLS).to(torch.int8)
@@ -155,11 +156,11 @@ def _compact_index(device: torch.device) -> torch.Tensor:
 def compact_guides(guide_i8: torch.Tensor) -> torch.Tensor:
     """(G, 128) block-layout guides -> (G16, 96) int8, contiguous, on the
     same device: column 4i+b = block column b*32+i for i < K_POSITIONS,
-    rows zero-padded up to G16, the next multiple of M_TILE. This is the A
-    operand of csrc/stage1.cu: block columns i >= K_POSITIONS must be zero
-    (stage1 checks), so the product of the compacted guides with the
-    interleaved target one-hot (codes_onehot_compact) equals the
-    block-layout product."""
+    rows zero-padded up to G16, the next multiple of M_TILE. This is the
+    guide operand (wgmma's B) of csrc/stage1.cu: block columns i >=
+    K_POSITIONS must be zero (stage1 checks), so the product of the
+    compacted guides with the interleaved target one-hot
+    (codes_onehot_compact) equals the block-layout product."""
     G = guide_i8.shape[0]
     cols = guide_i8.index_select(1, _compact_index(guide_i8.device))
     return F.pad(cols, (0, 0, 0, -G % M_TILE)).contiguous()

@@ -50,13 +50,14 @@ def build_db(seq, pack):
     return build_database_from_sites(find_target_sites(iter([("chrT", seq)]), pack), 7)
 
 
-@pytest.mark.parametrize("G", [1, 15, 16, 17, 100, 128, "512 super rows", 2048])
+@pytest.mark.parametrize("G", chip_smoke.PHASE3_ROWS)
 def test_stage1_kernel_equals_plain(cuda, G):
-    """The tensor-core kernel on a ragged width (not a multiple of its
-    64-target warp tile) with a PAD_CODE tail, at guide rows that are and
-    are not multiples of its 16-row m-tile, with guide padding rows, and on
-    super rows (two 1s per position), for every thr from 1 to 20: bitwise
-    equal to the plain version, one launch per call."""
+    """The wgmma kernel on a ragged width (not a multiple of its 64-target
+    m-tile) with a PAD_CODE tail, at guide rows that are and are not
+    multiples of compact_guides' 16 rows and of its 128-row n-tile (1152:
+    9 n-tiles), with guide padding rows, and on super rows (two 1s per
+    position), for every thr from 1 to 20: bitwise equal to the plain
+    version, one launch per call."""
     rng = np.random.default_rng(3)
     n_real, n = 150_001, 153_333
     targets = rng.integers(0, 1 << 46, size=n_real, dtype=np.uint64)
