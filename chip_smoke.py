@@ -63,9 +63,10 @@ each of which fails the run on any mismatch:
      mode (K1 and its 512 super rows, X1, X2, X3, X4 and its 512 super rows,
      X5 at two tiles, X6 in three modes) bitwise against its plain version
      and timed beside it, X6 dot at 512 guides, and X6 copy's bytes/s;
-     then X4 (the tensor-core kernel) bitwise against its plain version on
-     a ragged 2^20-target slice with a PAD_CODE tail at 1, 15, 16, 17, 100,
-     1024, 1025 and 2048 guide rows and 512 super rows, each at the
+     then X4 (its wgmma kernel with the targets as M) bitwise against its
+     plain version on a ragged 2^20-target slice with a PAD_CODE tail at 1,
+     15, 16, 17, 100, 127, 128, 129, 1024, 1025 and 2048 guide rows and 512
+     super rows, each at the
      thresholds -2^31, -257, -1, 0, 1, 16, 32, 33, 256, 257 and 2^31-1, one
      counted launch per call; and X1, X2, X3, X5 and X6 full/dot (the wgmma
      kernel) on the same slice, at 1, 63, 64, 65, 100, 127, 128, 129, 1024,
@@ -96,7 +97,7 @@ over 3.35 TB/s, and times the library call: torch._int_mm of a pre-built
 the epilogue, in the plain version's column chunks; for X6 copy, whose
 output is one-hot row 0, a clone of that row. For K1 it also times the
 launcher alone on pre-compacted guides (kernel_only_ms), so that the
-wrapper's own cost per call shows; so it does for X1, X2, X3, X5 and X6
+wrapper's own cost per call shows; so it does for X1, X2, X3, X4, X5 and X6
 full/dot, whose wrappers check the guides' 0/1 bytes on every call (X3's
 also permutes its guides to interleaved order, and its launcher alone is
 X5's at t_tile 4096 on guides permuted beforehand). X6 copy is the tool's
@@ -212,7 +213,7 @@ FIVE_METRICS = "doench2016cfd,hsu2013,jostandsantos,minot,dangerous"
 ELEVEN_METRICS = FIVE_METRICS + (",doench2014ontarget,moreno2015,bedannotator,"
                                  "reciprocalofftargets,folding,rank")
 K1_FIELDS = TIMED_FIELDS + ("bound_ms_128", "kernel_only_ms")
-# the wgmma kernel's tool keys, also timed through their launcher alone:
+# the wgmma kernels' tool keys, also timed through their launcher alone:
 # (wrapper, launcher, the launcher's arguments after thr: t_tile or mode);
 # X3's launcher takes its guides permuted to interleaved order
 LAUNCHER_ONLY = {"1": (sv.v1_gloop, "ff_v1_gloop_launch", ()),
@@ -221,11 +222,20 @@ LAUNCHER_ONLY = {"1": (sv.v1_gloop, "ff_v1_gloop_launch", ()),
                  "5a": (sv.v5_tile, "ff_v5_tile_launch", (2048,)),
                  "5b": (sv.v5_tile, "ff_v5_tile_launch", (8192,)),
                  "e_full": (sv.expanded, "ff_expanded_launch", (sv.MODES["full"],)),
-                 "e_dot": (sv.expanded, "ff_expanded_launch", (sv.MODES["dot"],))}
-# X4's edge cases (phase 6): guide rows around its 16-row m-tile and its
-# 1024-row stage, the tool's paired rows; int32 thresholds around bf16's
-# exact range and the counts' 0..32; the targets of the slice
-X4_ROWS = (1, 15, 16, 17, 100, 1024, 1025, 2048, "512 super rows")
+                 "e_dot": (sv.expanded, "ff_expanded_launch", (sv.MODES["dot"],)),
+                 "bf": (sv.v6_bf16out, "ff_v6_bf16out_launch", ()),
+                 "g2bf": (sv.v6_bf16out, "ff_v6_bf16out_launch", ())}
+# X4's design, named in its kernels-line entry
+X4_DESIGN = ("wgmma m64n128k32 s8 x s8 -> s32 over K = 128 (block layout): "
+             "targets as M (A, one-hot words built in registers from 8 code "
+             "bytes per lane per target by __vcmpeq4), <= 1024 guide rows a "
+             "stage in shared memory as N (B), stages' bytes OR-ed, max and "
+             ">= thr folded in registers; 4 warpgroups, one block per SM")
+# X4's edge cases (phase 6): guide rows around its 128-row n-tile, the
+# earlier design's 16-row m-tile and its 1024-row stage, the tool's paired
+# rows; int32 thresholds around bf16's exact range and the counts' 0..32;
+# the targets of the slice
+X4_ROWS = (1, 15, 16, 17, 100, 127, 128, 129, 1024, 1025, 2048, "512 super rows")
 THR_EDGES = (-2 ** 31, -257, -1, 0, 1, 16, 32, 33, 256, 257, 2 ** 31 - 1)
 X4_EDGE_N = 1 << 20
 # X1's, X2's, X3's, X5's and X6's edge cases (phase 6, the same slice): guide
@@ -1133,6 +1143,8 @@ def phase_variants():
              **{f: timed[ks[0]][f] for f in TIMED_FIELDS + ("kernel_only_ms",)
                 if f in timed[ks[0]]},
              "max_abs_err": max(timed[k]["max_abs_err"] for k in ks)}
+        if name == "v6_bf16out":
+            e["design"] = X4_DESIGN
         if len(ks) > 1:
             e["variants"] = {k: {f: timed[k][f] for f in TIMED_FIELDS + ("kernel_only_ms",)
                                  if f in timed[k]} for k in ks}

@@ -56,12 +56,15 @@
 //    warpgroups stride over 64-target m-tiles. Super rows (two 1s per
 //    position) multiply exactly, since a target holds one base per
 //    position.
+//  - The n-tile step (issue_rs with its asm pin on the A words, fold_max,
+//    target_max) lives in wgmma_s8.cuh, shared with X4 (stage1_variants.cu),
+//    which has K1's form with K = 128.
 // tests/test_torch_scan_kernel.py models the A words, the descriptor reads,
 // the accumulator map and the fold in numpy.
 //
 // On an H100 80GB HBM3 at 700 W, chip_smoke.py times it at 10.5-10.7 ms at
 // the main path's 2048 rows through stage1 (89-91% of the bound; 10.2-10.3
-// ms, 93-94%, for the launcher alone), against 20.48 ms for the mma.sync
+// ms, 93-94%, for the launcher alone), against 20.48 ms for the warp-level
 // m16n8k32 design it replaced, in turns on the same card (PERF.md). 103
 // registers a thread, no spills.
 
@@ -106,40 +109,6 @@ __device__ __forceinline__ void load_codes(int (&c)[2][kCodesPerLane],
                     ? __ldg(lane_codes + static_cast<long long>(4 * q) * n + col + 8 * v)
                     : kPadCode;
     }
-  }
-}
-
-// three k-steps of n-tile `tile` into d, committed as one group. The
-// empty asm on a keeps the A words' definitions before wgmma.fence: a
-// register operand defined after it makes ptxas insert a warpgroup.arrive
-// of its own and serialize the wgmma (its C7519/C7520 reports).
-__device__ __forceinline__ void issue(int (&d)[kAcc], uint32_t (&a)[kKSteps][4],
-                                      const uint64_t (&desc)[kKSteps], int tile) {
-  ff_wgmma::fence_operands(d);
-#pragma unroll
-  for (int s = 0; s < kKSteps; ++s) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(a[s][k]) :: "memory");
-  }
-  ff_wgmma::fence();
-#pragma unroll
-  for (int s = 0; s < kKSteps; ++s) {
-    // the descriptor's start address counts 16-byte units: n-tile j starts
-    // kNTile rows of 16 bytes on
-    ff_wgmma::mma_s8_rs(d, a[s], desc[s] + static_cast<uint64_t>(tile * kNTile), s);
-  }
-  ff_wgmma::commit_group();
-}
-
-// run[v][h] = max(run[v][h], the counts of target row g + 8v in d); d[4j],
-// d[4j+1] are row g, d[4j+2], d[4j+3] row g + 8 (wgmma_s8.cuh); two
-// runners per row halve the dependent chain
-__device__ __forceinline__ void fold(int (&run)[2][2], int (&d)[kAcc]) {
-  ff_wgmma::fence_operands(d);
-#pragma unroll
-  for (int j = 0; j < kAcc / 4; ++j) {
-    run[0][j & 1] = __vimax3_s32(run[0][j & 1], d[4 * j], d[4 * j + 1]);
-    run[1][j & 1] = __vimax3_s32(run[1][j & 1], d[4 * j + 2], d[4 * j + 3]);
   }
 }
 
@@ -200,22 +169,15 @@ stage1_kernel(const int8_t* __restrict__ codes, long long n,
     int run[2][2] = {{0, 0}, {0, 0}};
     for (int j = 0; j < n_tiles; ++j) {
       int d[kAcc];  // k-step 0 overwrites, the others add
-      issue(d, a, desc, j);
+      ff_wgmma::issue_rs(d, a, desc, j);
       ff_wgmma::wait_group<0>();
-      fold(run, d);
+      ff_wgmma::fold_max(run, d);
     }
 
-    // the max over the four lanes t of a target; lane t = 0 writes target
-    // row, t = 1 target row + 8
-    int r0 = max(run[0][0], run[0][1]);
-    int r1 = max(run[1][0], run[1][1]);
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      r0 = max(r0, __shfl_xor_sync(0xFFFFFFFFu, r0, off));
-      r1 = max(r1, __shfl_xor_sync(0xFFFFFFFFu, r1, off));
-    }
+    // lane t = 0 writes target row, t = 1 target row + 8
+    const int top = ff_wgmma::target_max(run, t);
     const long long col = mt * kMTile + row + 8 * t;
-    if (t < 2 && col < n) out[col] = (t ? r1 : r0) >= thr;
+    if (t < 2 && col < n) out[col] = top >= thr;
   }
 }
 

@@ -14,8 +14,8 @@
 //                            block-layout guides that the wrapper permutes
 //                            to interleaved order (X5's function), on wgmma
 //   X4 make_v6_bf16out       ff_v6_bf16out_launch        block-layout guides,
-//                            the bf16 max of the counts >= bf16(thr), on the
-//                            int8 tensor cores
+//                            the bf16 max of the counts >= bf16(thr), on
+//                            wgmma with the targets as M
 //   X5 make_v5_tile          ff_v5_tile_launch           interleaved guides,
 //                            32-bit max of the counts >= thr, in work units
 //                            of t_tile targets, on the int8 tensor cores
@@ -36,45 +36,56 @@
 // What bounds them on Hopper: the 2 x 128 x G x n int8 operations of the
 // one-hot product (1.11 ms at the tool's 2^23 targets x 1024 guides at the
 // published 1,979 TOP/s); the bytes (33 per target from codes, 129 from the
-// one-hot) are a small share. X6 copy runs on the CUDA cores; X4 runs the
-// product on the int8 tensor cores with mma.sync; X1, X2, X3, X5 and X6
-// full/dot run it with wgmma, which alone reaches the cores' full int8 rate.
+// one-hot) are a small share. X6 copy runs on the CUDA cores; every other
+// variant runs the product with wgmma, which alone reaches the cores' full
+// int8 rate: X4 with the targets as M (bf16out_kernel), X1, X2, X3, X5 and
+// X6 full/dot with the guides as M (wgmma_kernel).
 //
-// Design of X4 (bf16out_kernel): stage1.cu's tensor-core design, with
-// mma.sync m16n8k32 s8 (guides as A, 16 rows per m-tile; targets as B, 8
-// per n-tile; 8 n-tiles per warp), a persistent grid of one 12-warp block
-// per SM, and the guides staged with cp.async into shared memory,
-// chunk-major for ldmatrix.x4. Where X4's function differs from K1's:
-//  - K = 128, not compacted: k-step b is the block-layout columns 32b..32b+31,
-//    base b at positions 0..31. X4 takes any 0/1 block-layout guide, and
-//    code rows >= L hold 0 (base A), so a 1 in columns 24..31 counts.
-//  - B from 8 code bytes per lane per target: in the m16n8k32 B fragment
-//    lane l holds k-rows 4(l%4)+{0..3} and 16+4(l%4)+{0..3} of target l/4,
-//    the same 8 positions in every k-step. Each lane reads them once per
-//    warp tile, packs them into two words w, and builds step b's fragment
-//    as __vcmpeq4(w, b * 0x01010101) & 0x01010101: PAD_CODE, any code
-//    outside 0..3 and the ragged tail past n give zero bytes.
+// Design of X4 (bf16out_kernel): stage1.cu's (K1's) design with K = 128,
+// and its n-tile step (wgmma_s8.cuh issue_rs, fold_max, target_max).
+// wgmma.mma_async m64n128k32 s8 x s8 -> s32 with the TARGETS as M (A, from
+// registers, mma_s8_rs) and the GUIDES as N (B, from shared memory); four
+// warpgroups of one accumulator set each, one block per SM, a persistent
+// grid whose warpgroups stride over 64-target m-tiles. Where X4's function
+// differs from K1's:
+//  - K = 128, not compacted: k-step s is the block-layout columns
+//    32s..32s+31, base s at positions 0..31. X4 takes any 0/1 block-layout
+//    guide, and code rows >= L hold 0 (base A), so a 1 in columns 24..31
+//    counts and all 32 code rows are read.
+//  - The A words from 8 code bytes per lane per target: lane (g, t) of warp
+//    w holds k-bytes 4t..4t+3 and 16+4t..16+4t+3 of targets 16w + g and
+//    16w + g + 8, which in block order are positions 4t..4t+3 and
+//    16+4t..16+4t+3, the same in every k-step. The lane reads its 16 code
+//    bytes one m-tile ahead into registers, packs each four into a word w,
+//    and k-step s's word is __vcmpeq4(w, s * 0x01010101) & 0x01010101:
+//    PAD_CODE, any byte outside 0..3 and the ragged tail past n give zero
+//    words and never count.
 //  - Up to 2048 guide rows (262,144 B) do not fit a block's 232,448 B of
 //    shared memory, so the block stages at most 1024 rows (131,072 B) at a
-//    time, zero-padded to a multiple of 16, and runs the warp tiles once per
-//    stage. A warp tile maps to the same lanes in every stage, so the lane
-//    that wrote a byte ORs the next stage's hit into it; "max >= thr" is
-//    "any >= thr", so the OR is exact.
-//  - The epilogue: the counts are at most 32, exact in bf16, and bf16
-//    rounding keeps order, so the TPU's byte, max_g bf16(count_g) >=
-//    bf16(thr), is any_g(count_g >= thr) for every int32 thr. X4 takes
-//    stage1.cu's integer form of it: C starts at -max(thr, 0) (counts are
-//    >= 0, so any thr <= 0 acts as 0, and the negation cannot overflow), and
-//    each lane ANDs the sums' sign bits, one 3-input LOP3 per target per
-//    m-tile; zero padding rows then hit only when every row hits. The
-//    TPU's form, a bf16 max two values per lane (__hmax2), would need four
-//    int-to-float conversions per 4-step mma chain, where conversions issue
-//    at a quarter of the integer rate on compute capability 9.0: as many
-//    cycles as the four m16n8k32 themselves (one per 8 clocks per SM
-//    sub-partition), against two LOP3 for the integer form.
-// On an H100 80GB HBM3 at 700 W, chip_smoke.py times X4 at 2.6 ms at the
-// tool's 1024 rows and 1.5 ms on its 512 super rows (PERF.md): 42% and 37%
-// of the bound, with 166 registers a thread and no spills.
+//    time with cp.async, chunk-major (byte k of row r at ((k / 16) * rows +
+//    r) * 16 + k % 16: descriptor lbo = 16 * rows, sbo = 128), zero rows up
+//    to the 128-row n-tile, and walks the targets once per stage. A target
+//    maps to the same thread in every stage, and that thread ORs the later
+//    stage's hit into its byte ("max >= thr" is "any >= thr"). Between
+//    stages every wgmma has been waited for, then a barrier, the restage,
+//    fence.proxy.async and a barrier. The tool's 1024 rows and 512 super
+//    rows take one stage.
+//  - The epilogue is K1's: running maxima from 0 in registers (one
+//    __vimax3_s32 per two accumulators), the max over a target's four lanes
+//    by two __shfl_xor_sync, one byte max >= thr. The counts are at most
+//    32, exact in bf16, and bf16 rounding keeps order, so the TPU's byte,
+//    max_g bf16(count_g) >= bf16(thr), is any_g(count_g >= thr) for every
+//    int32 thr; counts are >= 0, so any thr <= 0 hits, and zero padding
+//    rows count 0 and change nothing.
+// tests/test_torch_stage1_variants.py models its A words, staging,
+// descriptor reads, accumulators, fold and OR over stages in numpy
+// (x4_model).
+// On an H100 80GB HBM3 at 700 W, chip_smoke.py times X4 at 1.55 ms at the
+// tool's 1024 rows and 0.93 ms on its 512 super rows (72% and 60% of the
+// bound; 1.43 and 0.86 ms for the launcher alone), against 2.58 and 1.49
+// ms for the warp-level m16n8k32 design it replaced, in turns on the same
+// card (PERF.md). 128 registers a thread (the cap at 512 threads), no
+// spills.
 //
 // Design of X1, X2, X3, X5 and X6 full/dot (wgmma_kernel, the helpers in
 // wgmma_s8.cuh): X1, X2 and X3 compute X5's function, so they run X5's
@@ -85,8 +96,9 @@
 // columns, so one permutation of the columns of both operands changes no
 // count: the permuted guides times X5's interleaved B tile are the TPU
 // kernel's block-layout product, code rows >= L (0, base A) included. A B
-// tile built in block order instead (four packed codes a word, X4's
-// __vcmpeq4 build) needs no permutation but ran 0.6% slower (PERF.md).
+// tile built in block order instead (four packed codes a word, byte-compared
+// with __vcmpeq4 as X4 builds its A words) needs no permutation but ran 0.6%
+// slower (PERF.md).
 // The kernel is a persistent grid of one block per SM, three warpgroups a
 // block. A = the interleaved guides, already K-major (row-major, 128 bytes a
 // row), staged once per block with cp.async, at most 1024 rows (131,072 B) at
@@ -127,9 +139,10 @@
 //    (shuffles) and the four warps (shared memory), and thread j writes
 //    target j's byte, OR-ed into the earlier stages' byte ("max >= thr" is
 //    "any >= thr"). Zero padding rows count 0 and change nothing. The first
-//    form of this kernel took X4's epilogue (accumulators set to -max(thr,
-//    0) before each m-tile, an AND of the sums' sign bits) and built every
-//    descriptor anew, and ran slower on the card (PERF.md).
+//    form of this kernel took the epilogue of X4's earlier, warp-level
+//    design (accumulators set to -max(thr, 0) before each m-tile, an AND of
+//    the sums' sign bits) and built every descriptor anew, and ran slower
+//    on the card (PERF.md).
 //  - X6 dot: the lanes holding guide 0 put its counts, as int8, in shared
 //    memory, and every count is XOR-folded into the written byte through
 //    `zero` (below).
@@ -152,32 +165,26 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "mma_s8.cuh"
 #include "wgmma_s8.cuh"
 
 namespace {
-
-using ff_mma::ldmatrix_x4;
-using ff_mma::mma_s8;
 
 constexpr int kThreads = 256;
 constexpr int kCodeRows = 32;
 constexpr int kOneHotRows = 128;
 constexpr int kGuideTile = 128;   // X1: the TPU kernel's g_tile
 constexpr long long kToolTile = 4096;  // X1, X2: the TPU kernels' t_tile
-// X4 on the tensor cores
-constexpr int kMmaThreads = 384;
-constexpr int kMmaWarps = kMmaThreads / 32;
-constexpr int kNTiles = 8;        // n-tiles of 8 targets per warp
-static_assert(kNTiles == 8, "lane group g writes n-tile g");
-constexpr int kWarpTargets = 8 * kNTiles;
 constexpr int kKSteps = kOneHotRows / 32;    // k-step b: base b at positions 0..31
 constexpr int kRowChunks = kOneHotRows / 16;  // 16-byte chunks per guide row
-constexpr int kMTile = 16;        // guide rows per m-tile
 constexpr int kStageRows = 1024;  // guide rows staged at a time: 131,072 B
 constexpr int kPadCode = 4;
-// X5 and X6 full/dot on wgmma
 constexpr int kWgThreads = 128;   // one warpgroup
+// X4 on wgmma, the targets as M
+constexpr int kX4WarpGroups = 4;
+constexpr int kX4Threads = kX4WarpGroups * kWgThreads;
+constexpr int kX4MTile = 64;      // targets per warpgroup m-tile
+constexpr int kX4NTile = ff_wgmma::kN;  // guide rows per wgmma n-tile
+// X1, X2, X3, X5 and X6 full/dot on wgmma, the guides as M
 constexpr int kWarpGroups = 3;
 constexpr int kWgmmaThreads = kWarpGroups * kWgThreads;
 constexpr int kWgMTile = 64;      // guide rows per wgmma m-tile
@@ -208,55 +215,75 @@ copy_kernel(const int8_t* __restrict__ oh, long long n,
   }
 }
 
-// X4 on the int8 tensor cores (see the header). Lane (g, t) of a warp tile
-// at t0 holds b[j][s][h]: the one-hot of base s at positions 16h + 4t +
-// {0..3} of target t0 + 8j + g; targets past n are padding.
-__device__ __forceinline__ void bf16out_fragments(uint32_t (&b)[kNTiles][kKSteps][2],
-                                                  const int8_t* __restrict__ codes,
-                                                  long long n, long long t0, int g,
-                                                  int t) {
+// X4 (see the header). The code bytes lane (g, t) of warp w needs for the
+// m-tile whose target 16w + g is col: c[v][4h + q] = position 16h + 4t + q
+// of target col + 8v, zero-extended; targets past n are padding.
+// `lane_codes` is codes + 4t * n.
+__device__ __forceinline__ void load_block_codes(uint32_t (&c)[2][8],
+                                                 const int8_t* __restrict__ lane_codes,
+                                                 long long n, long long col) {
 #pragma unroll
-  for (int j = 0; j < kNTiles; ++j) {
-    const long long col = t0 + 8 * j + g;
+  for (int v = 0; v < 2; ++v) {
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const long long row = 16 * (p >> 2) + (p & 3);
+      c[v][p] = col + 8 * v < n
+                    ? static_cast<uint8_t>(__ldg(lane_codes + row * n + col + 8 * v))
+                    : static_cast<uint32_t>(kPadCode);
+    }
+  }
+}
+
+// a[s][v + 2h] = the one-hot of base s at positions 16h + 4t + {0..3} of
+// target row + 8v (mma_s8_rs's fragment; k-step s is block columns 32s..):
+// the four code bytes packed into one word, byte-compared with s
+__device__ __forceinline__ void block_a_words(uint32_t (&a)[kKSteps][4],
+                                              const uint32_t (&c)[2][8]) {
+#pragma unroll
+  for (int v = 0; v < 2; ++v) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      uint32_t w = 0;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = col < n ? __ldg(codes + static_cast<long long>(16 * h + 4 * t + q) * n + col)
-                              : kPadCode;
-        w |= static_cast<uint32_t>(static_cast<uint8_t>(c)) << (8 * q);
-      }
+      const uint32_t w = __byte_perm(__byte_perm(c[v][4 * h], c[v][4 * h + 1], 0x0040),
+                                     __byte_perm(c[v][4 * h + 2], c[v][4 * h + 3], 0x0040),
+                                     0x5410);
 #pragma unroll
       for (int s = 0; s < kKSteps; ++s) {
-        b[j][s][h] = __vcmpeq4(w, 0x01010101u * s) & 0x01010101u;
+        a[s][v + 2 * h] = __vcmpeq4(w, 0x01010101u * s) & 0x01010101u;
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(kMmaThreads, 1)
+__global__ void __launch_bounds__(kX4Threads, 1)
 bf16out_kernel(const int8_t* __restrict__ codes, long long n,
                const int8_t* __restrict__ guides, int g_rows, int thr,
                int8_t* __restrict__ out) {
-  extern __shared__ __align__(16) int8_t s_rows[];  // [kRowChunks][rows16][16]
+  extern __shared__ __align__(16) int8_t s_rows[];  // [kRowChunks][rows][16]
   const uint32_t s_base = static_cast<uint32_t>(__cvta_generic_to_shared(s_rows));
-  const int lane = threadIdx.x & 31;
+  const int wl = threadIdx.x % kWgThreads;
+  const int warp = wl >> 5;
+  const int lane = wl & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int c0 = -max(thr, 0);
-  const long long n_tiles = (n + kWarpTargets - 1) / kWarpTargets;
-  const long long stride = static_cast<long long>(gridDim.x) * kMmaWarps;
-  const long long first = static_cast<long long>(blockIdx.x) * kMmaWarps + (threadIdx.x >> 5);
+  const int row = 16 * warp + g;  // the thread's first target in an m-tile
+  const int8_t* lane_codes = codes + 4LL * t * n;
+  const long long m_tiles = (n + kX4MTile - 1) / kX4MTile;
+  const long long stride = static_cast<long long>(gridDim.x) * kX4WarpGroups;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kX4WarpGroups + threadIdx.x / kWgThreads;
   for (int r0 = 0; r0 < g_rows; r0 += kStageRows) {
-    const int rows = min(kStageRows, g_rows - r0);
-    const int rows16 = (rows + kMTile - 1) / kMTile * kMTile;
-    __syncthreads();  // no warp still reads the previous stage
-    // row r's 16-byte chunk c at chunk c * rows16 + r; padding rows zero
-    for (int q = threadIdx.x; q < rows16 * kRowChunks; q += kMmaThreads) {
+    const int staged = min(kStageRows, g_rows - r0);
+    const int rows = (staged + kX4NTile - 1) / kX4NTile * kX4NTile;
+    uint32_t c[2][8];  // the next m-tile's code bytes, loaded a tile ahead
+    if (first < m_tiles) load_block_codes(c, lane_codes, n, first * kX4MTile + row);
+    // every wgmma of the previous stage was waited for (wait_group 0 after
+    // each n-tile); after this barrier no warpgroup reads it
+    __syncthreads();
+    // row r's 16-byte chunk c at (c * rows + r) * 16; rows up to the n-tile zero
+    for (int q = threadIdx.x; q < rows * kRowChunks; q += kX4Threads) {
       const int r = q / kRowChunks;
-      const uint32_t off = ((q - r * kRowChunks) * rows16 + r) * 16;
-      if (r < rows) {
+      const uint32_t off = ((q - r * kRowChunks) * rows + r) * 16;
+      if (r < staged) {
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                      :: "r"(s_base + off),
                         "l"(guides + 16 * (static_cast<long long>(r0) * kRowChunks + q)));
@@ -265,59 +292,34 @@ bf16out_kernel(const int8_t* __restrict__ codes, long long n,
       }
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
+    ff_wgmma::fence_proxy_async();
     __syncthreads();
 
-    // ldmatrix.x4: lanes 8i..8i+7 address matrix i = rows 8(i&1)+{0..7},
-    // k-bytes 16(i>>1)..+15 of the k-step
-    uint32_t a_addr[kKSteps];
+    uint64_t desc[kKSteps];
 #pragma unroll
     for (int s = 0; s < kKSteps; ++s) {
-      a_addr[s] = s_base + ((2 * s + (lane >> 4)) * rows16 + (lane & 15)) * 16;
+      desc[s] = ff_wgmma::smem_desc(s_base + 2 * s * rows * 16, 16 * rows, 128);
     }
-    const int m_tiles = rows16 / kMTile;
-    for (long long wt = first; wt < n_tiles; wt += stride) {
-      uint32_t b[kNTiles][kKSteps][2];
-      bf16out_fragments(b, codes, n, wt * kWarpTargets, g, t);
-      uint32_t run[kNTiles][2];
-#pragma unroll
-      for (int j = 0; j < kNTiles; ++j) run[j][0] = run[j][1] = 0xFFFFFFFFu;
-#pragma unroll 2
-      for (int m = 0; m < m_tiles; ++m) {
-        uint32_t a[kKSteps][4];
-#pragma unroll
-        for (int s = 0; s < kKSteps; ++s) ldmatrix_x4(a[s], a_addr[s] + m * 256);
-#pragma unroll
-        for (int j = 0; j < kNTiles; ++j) {
-          int d[4];
-          mma_s8(d, a[0], b[j][0][0], b[j][0][1], c0);
-#pragma unroll
-          for (int s = 1; s < kKSteps; ++s) mma_s8(d, a[s], b[j][s][0], b[j][s][1]);
-          // d0, d2: target 2t (rows g, g+8); d1, d3: target 2t+1
-          run[j][0] &= static_cast<uint32_t>(d[0]) & static_cast<uint32_t>(d[2]);
-          run[j][1] &= static_cast<uint32_t>(d[1]) & static_cast<uint32_t>(d[3]);
-        }
+    const int n_tiles = rows / kX4NTile;
+    for (long long mt = first; mt < m_tiles; mt += stride) {
+      uint32_t a[kKSteps][4];
+      block_a_words(a, c);
+      if (mt + stride < m_tiles) {
+        load_block_codes(c, lane_codes, n, (mt + stride) * kX4MTile + row);
       }
-      // fold the 8 lane groups; lane (g, t) then writes targets 2t, 2t+1 of
-      // n-tile g, OR-ed into what it wrote for the earlier stages
-      uint32_t h0 = 0, h1 = 0;
-#pragma unroll
-      for (int j = 0; j < kNTiles; ++j) {
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          run[j][0] &= __shfl_xor_sync(0xFFFFFFFFu, run[j][0], off);
-          run[j][1] &= __shfl_xor_sync(0xFFFFFFFFu, run[j][1], off);
-        }
-        if (j == g) {
-          h0 = run[j][0];
-          h1 = run[j][1];
-        }
+      int run[2][2] = {{0, 0}, {0, 0}};
+      for (int j = 0; j < n_tiles; ++j) {
+        int d[ff_wgmma::kAcc];  // k-step 0 overwrites, the others add
+        ff_wgmma::issue_rs(d, a, desc, j);
+        ff_wgmma::wait_group<0>();
+        ff_wgmma::fold_max(run, d);
       }
-      const long long col = wt * kWarpTargets + 8 * g + 2 * t;
-      if (col < n) {
-        out[col] = static_cast<int8_t>((r0 ? out[col] : 0) | (static_cast<int>(h0) >= 0));
-      }
-      if (col + 1 < n) {
-        out[col + 1] = static_cast<int8_t>((r0 ? out[col + 1] : 0) | (static_cast<int>(h1) >= 0));
+      // lane t = 0 writes target row, t = 1 target row + 8, OR-ed into what
+      // it wrote for the earlier stages
+      const int top = ff_wgmma::target_max(run, t);
+      const long long col = mt * kX4MTile + row + 8 * t;
+      if (t < 2 && col < n) {
+        out[col] = static_cast<int8_t>((r0 ? out[col] : 0) | (top >= thr));
       }
     }
   }
@@ -616,16 +618,16 @@ extern "C" int ff_v6_bf16out_launch(const void* codes, long long n,
   if (g_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
   const int staged = g_rows < kStageRows ? g_rows : kStageRows;
-  const size_t smem = static_cast<size_t>((staged + kMTile - 1) / kMTile * kMTile) *
+  const size_t smem = static_cast<size_t>((staged + kX4NTile - 1) / kX4NTile * kX4NTile) *
                       kOneHotRows;
   cudaError_t err = cudaFuncSetAttribute(
       bf16out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int grid = 0;
-  err = persistent_grid(bf16out_kernel, kMmaThreads, smem, n,
-                        static_cast<long long>(kMmaWarps) * kWarpTargets, &grid);
+  err = persistent_grid(bf16out_kernel, kX4Threads, smem, (n + kX4MTile - 1) / kX4MTile,
+                        kX4WarpGroups, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bf16out_kernel<<<grid, kMmaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  bf16out_kernel<<<grid, kX4Threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(codes), n, static_cast<const int8_t*>(guides),
       g_rows, thr, static_cast<int8_t*>(out));
   return static_cast<int>(cudaGetLastError());

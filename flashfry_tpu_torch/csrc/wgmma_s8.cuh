@@ -1,8 +1,9 @@
 // Inline-PTX helpers of the int8 warpgroup tensor-core kernels (K1 in
-// stage1.cu; X1, X2, X3, X5 and X6 in stage1_variants.cu): the
-// shared-memory matrix descriptor, the fences, and wgmma.mma_async
-// m64n128k32 s8 x s8 -> s32 with A in shared memory (mma_s8) or in
-// registers (mma_s8_rs), B in shared memory. sm_90a only.
+// stage1.cu; X1-X6 in stage1_variants.cu): the shared-memory matrix
+// descriptor, the fences, and wgmma.mma_async m64n128k32 s8 x s8 -> s32
+// with A in shared memory (mma_s8) or in registers (mma_s8_rs), B in shared
+// memory; and the n-tile step of the kernels with the targets as A from
+// registers (K1 and X4): issue_rs, fold_max, target_max. sm_90a only.
 //
 // Layout the descriptor describes (no swizzle, K-major, which 8-bit
 // operands must be): a core matrix is 8 rows x 16 bytes, its rows 16 bytes
@@ -100,7 +101,7 @@ __device__ __forceinline__ void mma_s8(int (&d)[kAcc], uint64_t desc_a, uint64_t
 //   a[1] (row 16w + g + 8, k 4t..4t+3)
 //   a[2] (row 16w + g,     k 16+4t..16+4t+3)
 //   a[3] (row 16w + g + 8, k 16+4t..16+4t+3)
-// (the A fragment of mma.sync m16n8k32, one per warp); d as in mma_s8.
+// (warp w's 16 rows of the tile); d as in mma_s8.
 // a must not change until the wgmma's group has been waited for.
 __device__ __forceinline__ void mma_s8_rs(int (&d)[kAcc], const uint32_t (&a)[4],
                                           uint64_t desc_b, int scale_d) {
@@ -128,6 +129,55 @@ __device__ __forceinline__ void mma_s8_rs(int (&d)[kAcc], const uint32_t (&a)[4]
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d)
       : "memory");
+}
+
+// The register-A kernels (K1, X4): kSteps k-steps of n-tile `tile` into d,
+// committed as one group. desc[s] is k-step s's descriptor of n-tile 0; the
+// start address counts 16-byte units, so n-tile j starts kN rows of 16
+// bytes on. The empty asm on a keeps the A words' definitions before
+// wgmma.fence: a register operand defined after it makes ptxas insert a
+// warpgroup.arrive of its own and serialize the wgmma (its C7519/C7520
+// reports).
+template <int kSteps>
+__device__ __forceinline__ void issue_rs(int (&d)[kAcc], uint32_t (&a)[kSteps][4],
+                                         const uint64_t (&desc)[kSteps], int tile) {
+  fence_operands(d);
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(a[s][k]) :: "memory");
+  }
+  fence();
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    mma_s8_rs(d, a[s], desc[s] + static_cast<uint64_t>(tile * kN), s);
+  }
+  commit_group();
+}
+
+// run[v][h] = max(run[v][h], the counts of target row g + 8v in d), after
+// the group was waited for: d[4j], d[4j+1] are row g, d[4j+2], d[4j+3]
+// row g + 8 (mma_s8); two runners per row halve the dependent chain
+__device__ __forceinline__ void fold_max(int (&run)[2][2], int (&d)[kAcc]) {
+  fence_operands(d);
+#pragma unroll
+  for (int j = 0; j < kAcc / 4; ++j) {
+    run[0][j & 1] = __vimax3_s32(run[0][j & 1], d[4 * j], d[4 * j + 1]);
+    run[1][j & 1] = __vimax3_s32(run[1][j & 1], d[4 * j + 2], d[4 * j + 3]);
+  }
+}
+
+// The max over the four lanes t of a target row (every lane calls it):
+// lane t = 0 gets target row g's, t = 1 row g + 8's (the two it writes)
+__device__ __forceinline__ int target_max(const int (&run)[2][2], int t) {
+  int r0 = max(run[0][0], run[0][1]);
+  int r1 = max(run[1][0], run[1][1]);
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    r0 = max(r0, __shfl_xor_sync(0xFFFFFFFFu, r0, off));
+    r1 = max(r1, __shfl_xor_sync(0xFFFFFFFFu, r1, off));
+  }
+  return t ? r1 : r0;
 }
 
 }  // namespace ff_wgmma

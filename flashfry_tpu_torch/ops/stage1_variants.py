@@ -26,9 +26,11 @@ layout" column 32b+i (`scan_kernel.guide_block_layout`).
 Each wrapper takes a CPU tensor to its plain PyTorch version `*_reference`,
 and a CUDA tensor to its hand-written kernel in csrc/stage1_variants.cu, or
 raises; `<wrapper>.launches` counts kernel launches. The kernels' header
-gives the designs: X1, X2, X3, X5 and X6 full/dot on the int8 tensor cores
-with wgmma (one kernel; X3 on its guides permuted to interleaved order by
-`interleaved_from_block`), X4 with mma.sync, X6 copy on the CUDA cores.
+gives the designs: every variant but X6 copy runs on the int8 tensor cores
+with wgmma, X4 with the targets as M (stage 1's form with K = 128), X1, X2,
+X3, X5 and X6 full/dot on one kernel with the guides as M (X3 on its guides
+permuted to interleaved order by `interleaved_from_block`); X6 copy runs on
+the CUDA cores.
 Input checks, the chunked plain matmul and the launch are scan_kernel's,
 shared with stage 1.
 """
@@ -208,7 +210,9 @@ def v6_bf16out(codes: torch.Tensor, guide_blk: torch.Tensor,
                thr: int) -> torch.Tensor:
     """X4: (32, N) int8 codes, (G, 128) int8 0/1 block-layout guides (or
     super rows, the max of two guides' rows) -> (1, N) int8 hit bytes. The
-    kernel multiplies on the int8 tensor cores and takes the byte as
+    kernel runs wgmma with the targets as M (their one-hot words built in
+    registers from the codes) and the guides as N, at most 1024 rows staged
+    at a time with the stages' bytes OR-ed, and takes the byte as
     any(count >= thr), which is the bf16 test for every int32 thr."""
     check_inputs(codes, guide_blk, "v6_bf16out")
     _check_thr(thr, "v6_bf16out")

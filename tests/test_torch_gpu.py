@@ -143,11 +143,12 @@ def test_stage1_variant_kernels_equal_plain(cuda):
 
 @pytest.mark.parametrize("G", chip_smoke.X4_ROWS)
 def test_v6_bf16out_kernel_equals_plain_at_every_row_count_and_thr_edge(cuda, G):
-    """X4 on the tensor cores, on a ragged width with a PAD_CODE tail, at
-    guide rows around its 16-row m-tile and its 1024-row stage (1025 and
-    2048 rows take two stages), on super rows, and with random 0/1 rows
-    (1s in columns 24..31), at every int32 threshold edge: bitwise equal to
-    the plain version, one launch per call, all ones at thr <= 0."""
+    """X4 on wgmma, on a ragged width with a PAD_CODE tail, at guide rows
+    around its 128-row n-tile (and the earlier design's 16-row m-tile) and
+    its 1024-row stage (1025 and 2048 rows take two stages), on super rows,
+    and with random 0/1 rows (1s in columns 24..31), at every int32
+    threshold edge: bitwise equal to the plain version, one launch per
+    call, all ones at thr <= 0."""
     rng = np.random.default_rng(12)
     n_real, n = 150_001, 153_333
     targets = rng.integers(0, 1 << 46, size=n_real, dtype=np.uint64)

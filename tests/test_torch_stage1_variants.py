@@ -9,9 +9,11 @@ rows and on G/2 super rows), X5 make_v5_tile at 2048 and 8192, X6
 make_expanded in its three modes. Two enzymes, max_mismatch 0..5, PAD_CODE
 columns and guide padding rows; every value is an integer (X4's bf16 counts
 are exact), so every comparison is exact (tolerance 0). Two identities the
-tensor-core X4 kernel rests on are held on the plain version: its byte is
-the OR of the bytes of row chunks zero-padded to 16 rows, and it equals the
-integer any(count >= thr) at every int32 threshold.
+wgmma X4 kernel rests on are held on the plain version: its byte is the OR
+of the bytes of row chunks zero-padded to its 128-row n-tile, and it equals
+the integer any(count >= thr) at every int32 threshold. Numpy models of the
+card's kernels (the wgmma kernel of X1, X2, X3, X5 and X6; X4's) are held
+to the plain versions and, for X4, to its Pallas maker.
 """
 
 import jax.numpy as jnp
@@ -405,8 +407,8 @@ X4_CHUNKS = {
 @pytest.mark.parametrize("case", list(X4_CHUNKS))
 def test_v6_bf16out_is_the_or_over_zero_padded_row_chunks(case):
     """What X4's kernel does with more rows than it stages at once: the OR
-    of the bytes over row chunks, each zero-padded to a multiple of 16
-    rows, is the byte over all rows, at every threshold edge."""
+    of the bytes over row chunks, each zero-padded to a multiple of the
+    128-row n-tile, is the byte over all rows, at every threshold edge."""
     rows, pair, chunks = X4_CHUNKS[case]
     codes, guides = x4_case(rows, seed=rows + len(chunks))
     if pair:
@@ -418,7 +420,7 @@ def test_v6_bf16out_is_the_or_over_zero_padded_row_chunks(case):
         want = sv.v6_bf16out(codes, guides, thr)
         got = torch.zeros_like(want)
         for a, b in zip(bounds[:-1], bounds[1:]):
-            part = torch.nn.functional.pad(guides[a:b], (0, 0, 0, -(b - a) % 16))
+            part = torch.nn.functional.pad(guides[a:b], (0, 0, 0, -(b - a) % 128))
             got |= sv.v6_bf16out(codes, part.contiguous(), thr)
         assert torch.equal(got, want), (case, thr)
         hits.append(int(want[0, :N_REAL].sum()))
@@ -913,3 +915,206 @@ def test_interleaved_from_block_moves_column_32b_plus_i_to_4i_plus_b():
     assert torch.equal(counts, torch._int_mm(sv.interleaved_onehot(c_T).contiguous(),
                                              sv.interleaved_from_block(guides).t().contiguous()))
     assert int(counts.max()) == 32 and not counts[n_real:].any()
+
+
+# ---------------------------------------------------------------------------
+# A numpy model of X4's kernel (csrc/stage1_variants.cu bf16out_kernel and
+# the n-tile step of csrc/wgmma_s8.cuh), step by step as the card runs it:
+# wgmma m64n128k32 with the targets as M, their A words packed from code
+# bytes and byte-compared with each base by __vcmpeq4 (block order: k-step s
+# is base s at positions 0..31); the guides as N, staged chunk-major at most
+# 1024 rows at a time with zero rows up to the 128-row n-tile and read back
+# through the n-tile descriptors; the accumulators by owner, the fold from 0,
+# the max over a target's four lanes and the OR over stages. It reuses the
+# wgmma kernel's helpers above (vcmpeq4, byte_perm, chunk_major, desc_read,
+# acc_owner).
+
+X4_M, X4_N, X4_STAGE, X4_STEPS = 64, 128, 1024, 4
+X4_MODEL_ROWS = (1, 127, 128, 129, 1024, 1025, 2048, "512 super rows")
+X4_MODEL_N = 2345  # not a multiple of 64; its last 335 columns are PAD_CODE
+
+
+def x4_code_bytes(codes):
+    """c[m, w, l, v, p], uint32: the code bytes lane l = 4g + t of warp w
+    reads for m-tile m (load_block_codes): position 16(p >> 2) + 4t + (p & 3)
+    of target 64m + 16w + g + 8v, zero-extended; targets past n read
+    PAD_CODE."""
+    n = codes.shape[1]
+    m, w, lane, v, p = np.meshgrid(np.arange(-(-n // X4_M)), np.arange(4), np.arange(32),
+                                   np.arange(2), np.arange(8), indexing="ij")
+    col = X4_M * m + 16 * w + (lane >> 2) + 8 * v
+    pos = 16 * (p >> 2) + 4 * (lane & 3) + (p & 3)
+    got = codes.view(np.uint8)[pos, np.minimum(col, n - 1)]
+    return np.where(col < n, got, PAD_CODE).astype(np.uint32)
+
+
+def x4_a_words(c):
+    """a[m, w, l, s, v + 2h] (block_a_words): code bytes c[..., v, 4h..4h+3]
+    packed into one word by two __byte_perm steps, then __vcmpeq4 with
+    s * 0x01010101, masked to 0/1 bytes."""
+    word = byte_perm(byte_perm(c[..., 0::4], c[..., 1::4], 0x0040),
+                     byte_perm(c[..., 2::4], c[..., 3::4], 0x0040), 0x5410)  # [..., v, h]
+    a = np.zeros(c.shape[:3] + (X4_STEPS, 4), dtype=np.uint32)
+    for s in range(X4_STEPS):
+        eq = vcmpeq4(word, np.uint32(0x01010101 * s)) & np.uint32(0x01010101)
+        a[..., s, :] = eq.swapaxes(-1, -2).reshape(eq.shape[:-2] + (4,))
+    return a
+
+
+def x4_a_owner():
+    """(target row, k) of the 64 x 32 A tile that byte b of a[r] of lane l
+    of warp w holds (wgmma_s8.cuh mma_s8_rs): row 16w + g + 8(r & 1), k
+    16(r >> 1) + 4t + b."""
+    w, lane, r, b = np.meshgrid(np.arange(4), np.arange(32), np.arange(4), np.arange(4),
+                                indexing="ij")
+    return 16 * w + (lane >> 2) + 8 * (r & 1), 16 * (r >> 1) + 4 * (lane & 3) + b
+
+
+def x4_a_tiles(a):
+    """(m_tiles, 64, 128) int32: the A operand the words stand for, k-step
+    s in columns 32s..32s+31."""
+    row, k = x4_a_owner()
+    tiles = np.zeros((a.shape[0], X4_M, 128), dtype=np.int32)
+    byte = _bytes_of(a).astype(np.int32)  # (M, w, l, s, r, b)
+    for s in range(X4_STEPS):
+        tiles[:, row, 32 * s + k] = byte[:, :, :, s]
+    return tiles
+
+
+def x4_stages(guides):
+    """The stages as the kernel walks them: (smem, rows) of each 1024-row
+    chunk of the guides, staged chunk-major with zero rows up to the
+    128-row n-tile."""
+    stages = []
+    for r0 in range(0, guides.shape[0], X4_STAGE):
+        staged = guides[r0:r0 + X4_STAGE]
+        rows = -(-staged.shape[0] // X4_N) * X4_N
+        stages.append((chunk_major(staged, rows), rows))
+    return stages
+
+
+def x4_b_tiles(smem, rows):
+    """(n_tiles, 128, 128) int32: the B operand the descriptors of n-tile j
+    and k-step s read (start (2s * rows + 128j) * 16, lbo 16 * rows, sbo
+    128)."""
+    return np.stack([np.concatenate([desc_read(smem, (2 * s * rows + X4_N * j) * 16,
+                                               16 * rows, 128, X4_N)
+                                     for s in range(X4_STEPS)], axis=1)
+                     for j in range(rows // X4_N)]).astype(np.int32)
+
+
+def x4_model(codes, guides):
+    """The kernel on the CPU: returns bytes(thr), the (n,) int8 output it
+    writes at thr. Per stage, m-tile and n-tile the accumulators d[w, l, k]
+    are the A tile times the B tile; each thread folds d[4j], d[4j+1] (row
+    g) and d[4j+2], d[4j+3] (row g + 8) into two runners per row from 0
+    (__vimax3_s32, j even and odd), takes the max over the four lanes t of
+    its g, and lane t = 0 writes target 64m + 16w + g, t = 1 target + 8,
+    where < n, OR-ed into its byte of the earlier stages."""
+    n = codes.shape[1]
+    A = x4_a_tiles(x4_a_words(x4_code_bytes(codes))).astype(np.float32)  # (M, 64, 128)
+    row, col = acc_owner()
+    m, w, g, t = np.meshgrid(np.arange(A.shape[0]), np.arange(4), np.arange(8), np.arange(4),
+                             indexing="ij")
+    target = X4_M * m + 16 * w + g + 8 * t
+    writes = (t < 2) & (target < n)
+    assert np.array_equal(np.sort(target[writes]), np.arange(n)), "a target written twice or never"
+    tops = []
+    for smem, rows in x4_stages(guides):
+        B = x4_b_tiles(smem, rows).astype(np.float32)                     # (J, 128, 128)
+        counts = np.matmul(A[:, None], B.transpose(0, 2, 1)[None]).astype(np.int32)
+        d = counts[:, :, row, col]                                        # (M, J, w, l, 64)
+        run = np.zeros(d.shape[:1] + d.shape[2:4] + (2, 2), dtype=np.int32)
+        for h in range(2):
+            j = np.arange(h, X4_N // 8, 2)
+            for v in range(2):
+                pair = np.maximum(d[..., 4 * j + 2 * v], d[..., 4 * j + 2 * v + 1])
+                run[..., v, h] = np.maximum(pair.max(axis=(1, -1)), 0)
+        lanes = run.max(axis=-1).reshape(run.shape[0], 4, 8, 4, 2)      # (M, w, g, t, v)
+        shuffled = np.broadcast_to(lanes.max(axis=3, keepdims=True), lanes.shape)
+        tops.append(np.take_along_axis(shuffled, np.minimum(t, 1)[..., None], axis=-1)[..., 0])
+
+    def bytes_at(thr):
+        out = np.zeros(n, dtype=np.int8)
+        for r0, top in enumerate(tops):
+            prev = out[target[writes]] if r0 else 0
+            out[target[writes]] = prev | (top[writes] >= thr)
+        return out
+
+    return bytes_at
+
+
+def x4_model_inputs(rows, seed):
+    """(32, X4_MODEL_N) codes with a PAD_CODE tail, n_real, and `rows` 0/1
+    block-layout guides (wg_guides: exact one-hots of targets, substituted
+    ones, random bytes; the last rows // 16 zero padding), or "512 super
+    rows": the paired rows of 1024 such rows."""
+    codes, n_real = wg_codes(X4_MODEL_N, seed)
+    G = 1024 if rows == "512 super rows" else rows
+    guides = wg_guides(G, codes, n_real, seed + 1, onehot_T=codes_onehot)
+    guides[G - G // 16:] = 0
+    if rows == "512 super rows":
+        guides = sv.super_rows(torch.from_numpy(guides)).numpy()
+    return codes, n_real, np.ascontiguousarray(guides)
+
+
+def test_x4_a_words_are_the_block_order_one_hots_of_the_targets():
+    """Every byte of the 64 x 32 A k-step tile is held once, and the A
+    tiles the packed __vcmpeq4 words stand for are the block-layout one-hot
+    of the targets (column 32b + i = code_i == b, all 32 code rows), zero
+    for PAD_CODE columns, bytes outside 0..3 and targets past n."""
+    row, k = x4_a_owner()
+    seen = np.zeros((X4_M, 32), dtype=int)
+    np.add.at(seen, (row, k), 1)
+    assert (seen == 1).all()
+    codes, n_real = wg_codes(X4_MODEL_N, seed=41)
+    codes[5, 7] = -1   # a byte outside 0..3 besides PAD_CODE: no base
+    n = codes.shape[1]
+    A = x4_a_tiles(x4_a_words(x4_code_bytes(codes))).reshape(-1, 128)
+    want = codes_onehot(torch.from_numpy(codes).t().contiguous()).numpy()
+    assert np.array_equal(A[:n], want) and not A[n:].any()
+    assert not A[n_real:n].any() and A[7, 5::32].sum() == 0
+
+
+def test_x4_stages_read_back_through_the_descriptors():
+    """Each stage read through its n-tile descriptors is its 1024-row chunk
+    of the guides, then zero rows up to the 128-row n-tile."""
+    rng = np.random.default_rng(43)
+    for G in (1, 129, 1024, 1025, 2048):
+        guides = rng.integers(-128, 128, size=(G, 128)).astype(np.int8)
+        stages = x4_stages(guides)
+        assert len(stages) == -(-G // X4_STAGE)
+        for i, (smem, rows) in enumerate(stages):
+            part = guides[X4_STAGE * i:X4_STAGE * (i + 1)]
+            B = x4_b_tiles(smem, rows).reshape(rows, 128)
+            assert rows % X4_N == 0 and rows - part.shape[0] < X4_N
+            assert np.array_equal(B[:part.shape[0]], part) and not B[part.shape[0]:].any()
+
+
+@pytest.mark.parametrize("rows", X4_MODEL_ROWS)
+def test_x4_model_equals_v6_bf16out_reference_and_pallas_interpret(rows):
+    """The model gives exactly the plain version's bytes and those of the
+    Pallas maker make_v6_bf16out in interpret mode (tolerance: none) at
+    every int32 threshold edge, on a ragged width with a PAD_CODE tail, at
+    guide rows around the 128-row n-tile and the 1024-row stage (1025 and
+    2048 take two), with zero padding rows and 1s in block columns 24..31,
+    and on the tool's 512 super rows."""
+    codes, n_real, guides = x4_model_inputs(rows, seed=len(str(rows)) + 47)
+    assert guides[:, 24:32].any() or rows == 1
+    model = x4_model(codes, guides)
+    c, g = torch.from_numpy(codes), torch.from_numpy(guides)
+    partial = 0
+    for thr in THR_EDGES:
+        want = sv.v6_bf16out_reference(c, g, thr)[0].numpy()
+        got = model(thr)
+        assert np.array_equal(got, want), (rows, thr)
+        tpu = pallas(lambda: X.make_v6_bf16out(thr, X4_MODEL_N, guides.shape[0],
+                                               t_tile=X4_MODEL_N), codes, guides)
+        assert np.array_equal(got, tpu[0]), (rows, thr)
+        if thr <= 0:
+            assert want.all(), thr
+        elif thr > 32:
+            assert not want.any(), thr
+        partial += 0 < int(want[:n_real].sum()) < n_real
+    assert not model(1)[n_real:].any()
+    assert partial or rows == 1
