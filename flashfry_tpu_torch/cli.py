@@ -39,6 +39,7 @@ from .ops.scan import DeviceScanner
 from .ops.scan_kernel import stage1
 from .scoring.otbatch import BACKENDS as SCORE_BACKENDS
 from .targetio import write_output
+from .trace import recording, span
 from .utils import iterate_fasta
 
 logger = logging.getLogger("flashfry_tpu_torch")
@@ -184,7 +185,13 @@ def cmd_index(args) -> None:
 def cmd_discover(args) -> dict:
     """Run discover; returns a report of phase seconds and counts (also
     logged as JSON). With --coordinator every process scans and returns its
-    report; only process 0 writes --output."""
+    report; only process 0 writes --output.
+
+    The phase seconds are the call's spans (trace.py): `spans` holds every
+    span's seconds by name and `counts` the counters; the top-level keys
+    are load_s, guide_sites_s, upload_expand_s (the plane_build span: the
+    scanner's construction, absent with --backend numpy), counter_s,
+    collect_s, scan_s (the scan span less counter and collect) and write_s."""
     multi = args.coordinator is not None
     if multi:
         # the numpy oracle has no multi-process form: honouring --backend
@@ -214,32 +221,40 @@ def cmd_discover(args) -> dict:
 
 
 def _discover(args, device, multi: bool) -> dict:
+    with recording() as rec:
+        report = _discover_traced(args, device, multi, rec.spans)
+    report.update(spans=dict(rec.spans), counts=dict(rec.counts))
+    logger.info("discover report: %s", json.dumps(report))
+    return report
+
+
+def _discover_traced(args, device, multi: bool, spans: dict) -> dict:
     report = {"backend": args.backend,
               "device": str(device) if device is not None else "host"}
-    t = time.perf_counter()
-    db = load_database(args.database)
-    report["load_s"] = time.perf_counter() - t
+    with span("load"):
+        db = load_database(args.database)
+    report["load_s"] = spans["load"]
 
     logger.info("Reading the input fasta and scanning for candidate guides...")
-    t = time.perf_counter()
-    gsites = find_target_sites(iterate_fasta(args.fasta), db.pack,
-                               flanking_sequence=args.flankingSequence,
-                               capture_context=True)
-    report["guide_sites_s"] = time.perf_counter() - t
+    with span("guide_sites"):
+        gsites = find_target_sites(iterate_fasta(args.fasta), db.pack,
+                                   flanking_sequence=args.flankingSequence,
+                                   capture_context=True)
+    report["guide_sites_s"] = spans["guide_sites"]
 
     scanner = None
     report.update(scan_mode="host", slabs=0, shards=[0, 0], shard_n=0,
                   process=0, gathered_bytes=0, gather_calls=0)
     if device is not None:
-        t = time.perf_counter()
-        if multi:
-            from .parallel import multihost
-            scanner = multihost.MultiHostScanner(
-                db, mesh=multihost.make_global_mesh(device))
-            report.update(scan_mode="multihost", process=args.processId)
-        else:
-            scanner = default_scanner(db, device)
-        report["upload_expand_s"] = time.perf_counter() - t
+        with span("plane_build"):
+            if multi:
+                from .parallel import multihost
+                scanner = multihost.MultiHostScanner(
+                    db, mesh=multihost.make_global_mesh(device))
+                report.update(scan_mode="multihost", process=args.processId)
+            else:
+                scanner = default_scanner(db, device)
+        report["upload_expand_s"] = spans["plane_build"]
         if isinstance(scanner, DeviceScanner):
             report.update(scan_mode=scanner.mode, slabs=scanner.slabs,
                           shards=[1, 1], shard_n=db.num_targets)
@@ -263,25 +278,25 @@ def _discover(args, device, multi: bool) -> dict:
                       scanner=scanner)
     logger.info("Performed a total of %s guide to target comparisons in %.3fs",
                 format(stats.all_comparisons, ","), stats.scan_seconds)
-    t = time.perf_counter()
-    if not multi or args.processId == 0:
-        write_output(args.output, guides, db.bit_encoding(), db.bit_position(),
-                     models=(), write_ots=True,
-                     write_positions=args.positionOutput)
+    with span("write"):
+        if not multi or args.processId == 0:
+            write_output(args.output, guides, db.bit_encoding(), db.bit_position(),
+                         models=(), write_ots=True,
+                         write_positions=args.positionOutput)
     if multi:
         report.update(gathered_bytes=scanner.dcn_allgather_bytes,
                       gather_calls=scanner.dcn_allgather_calls)
+    counter_s, collect_s = spans.get("counter", 0.0), spans.get("collect", 0.0)
     report.update(
-        write_s=time.perf_counter() - t,
+        write_s=spans["write"],
         stage1_launches=stage1.launches - launches,
-        counter_s=stats.counter_seconds,
-        collect_s=stats.collect_seconds,
-        scan_s=stats.scan_seconds - stats.counter_seconds - stats.collect_seconds,
+        counter_s=counter_s,
+        collect_s=collect_s,
+        scan_s=spans.get("scan", 0.0) - counter_s - collect_s,
         guides=len(guides),
         overflowed_guides=sum(1 for g in guides if g.full),
         all_comparisons=stats.all_comparisons,
         dense_comparisons=stats.dense_comparisons)
-    logger.info("discover report: %s", json.dumps(report))
     return report
 
 
@@ -312,11 +327,11 @@ def run(argv=None) -> Optional[dict]:
     """Parse argv and run the command; returns discover's or score's
     report."""
     args = build_parser().parse_args(argv)
-    t0 = time.time()
+    t0 = time.perf_counter()
     report = {"index": cmd_index, "discover": cmd_discover,
               "score": cmd_score, "random": cmd_random,
               "extract": cmd_extract}[args.command](args)
-    logger.info("Total runtime %.2fs", time.time() - t0)
+    logger.info("Total runtime %.2fs", time.perf_counter() - t0)
     return report
 
 

@@ -23,6 +23,7 @@ from .bitcoding import STRING_MASK
 from .database import Database
 from .discovery import DiscoveredSites
 from .targetio import GuideWithOffTargets
+from .trace import span
 from .utils import gc_content
 
 from .device import resolve_device
@@ -39,9 +40,10 @@ BACKENDS = ("torch", "numpy")
 class ScanStats:
     """Counters mirroring the reference's Traverser counters
     (reference/traverser/Traverser.scala:66-74), plus phase timings for the
-    discover epilogue (scan_seconds covers the whole scan+collect+counter
-    span; collect/counter break out the host aggregation and the
-    pruned-comparisons bookkeeping so a slow run is attributable)."""
+    discover epilogue, each the seconds of its span (trace.py):
+    scan_seconds covers the whole scan+collect+counter span; collect/counter
+    break out the host aggregation and the pruned-comparisons bookkeeping
+    so a slow run is attributable."""
     all_targets: int = 0
     all_targets_and_positions: int = 0  # targets weighted by genomic positions
     all_comparisons: int = 0          # FlashFry-equivalent comparisons (after pruning)
@@ -111,7 +113,7 @@ def _scan_numpy(db: Database, guide_longs: np.ndarray, max_mismatch: int,
     if bin_mask is not None:
         # per-target bin index, to mask pruned (guide, target) pairs
         tgt_bins = np.repeat(np.arange(db.num_bins), db.bin_target_counts())
-    t0 = time.time()
+    t0 = time.perf_counter()
     for chunk_i, lo in enumerate(range(0, n, chunk)):
         hi = min(n, lo + chunk)
         if chunk_i and chunk_i % 64 == 0:
@@ -119,7 +121,7 @@ def _scan_numpy(db: Database, guide_longs: np.ndarray, max_mismatch: int,
             logger.info("Comparing the %sth chunk of %s targets; executed %s "
                         "comparisons so far (%.1fs)", format(chunk_i, ","),
                         format(hi - lo, ","), format(stats.all_comparisons, ","),
-                        time.time() - t0)
+                        time.perf_counter() - t0)
         stats.all_targets_and_positions += int(db.pos_offsets[hi] - db.pos_offsets[lo])
         sub_mask = None
         if bin_mask is not None:
@@ -159,9 +161,16 @@ def _collect_hits(db: Database, guides: List[GuideWithOffTargets],
         g_chunks.append(np.asarray(g_idx, dtype=np.int64))
     if not t_chunks:
         return
-    t0 = time.time()  # post-scan host aggregation (the scan wait is above)
-    t = np.concatenate(t_chunks)
-    g = np.concatenate(g_chunks)
+    # post-scan host aggregation (the scan wait is above)
+    with span("collect") as sp:
+        _assign_hits(db, guides, np.concatenate(t_chunks), np.concatenate(g_chunks))
+    if stats is not None:
+        stats.collect_seconds += sp.seconds
+
+
+def _assign_hits(db: Database, guides: List[GuideWithOffTargets],
+                 t: np.ndarray, g: np.ndarray) -> None:
+    """_collect_hits' aggregation of the hits (t, g), in scan order."""
     n_guides = len(guides)
 
     # native one-pass collect: counting-scatter by guide + cap rule + CSR
@@ -185,8 +194,6 @@ def _collect_hits(db: Database, guides: List[GuideWithOffTargets],
             guides[gi].set_ots_arrays(
                 out_longs[s:e],
                 out_coords[coord_offsets[s]:coord_offsets[e]], offs)
-        if stats is not None:
-            stats.collect_seconds += time.time() - t0
         return
 
     order = np.argsort(g, kind="stable")
@@ -244,8 +251,6 @@ def _collect_hits(db: Database, guides: List[GuideWithOffTargets],
         offs = out_off[s:e + 1] - out_off[s]
         guides[gi].set_ots_arrays(targets[t_acc[s:e]],
                                   coords[out_off[s]:out_off[e]], offs)
-    if stats is not None:
-        stats.collect_seconds += time.time() - t0
 
 
 def _pad_to(x: int, m: int) -> int:
@@ -376,54 +381,56 @@ def discover(db: Database, guide_sites: DiscoveredSites,
 
     # host prologue of flashfry_tpu.engine.discover: GC filter, guide
     # objects, stable sort by start (CRISPRSiteOT.compare)
-    bases = guide_sites.bases()
-    contexts = (guide_sites.contexts if guide_sites.contexts is not None
-                else [None] * len(guide_sites))
-    contig_names = [""] + guide_sites.contig_names
-    guides: List[GuideWithOffTargets] = []
-    for i in range(len(guide_sites)):
-        gc = gc_content(bases[i])
-        if gc < min_gc or gc > max_gc:
-            continue
-        guides.append(GuideWithOffTargets(
-            contig=contig_names[int(guide_sites.contig_ids[i])],
-            start=int(guide_sites.positions[i]),
-            bases=bases[i],
-            forward_strand=bool(guide_sites.forward[i]),
-            sequence_context=contexts[i],
-            long_encoding=int(guide_sites.sequences[i] & STRING_MASK
-                              | (np.uint64(1) << np.uint64(48))),
-            overflow_cap=maximum_off_targets,
-        ))
-    guides.sort(key=lambda g: g.start)
+    with span("prologue"):
+        bases = guide_sites.bases()
+        contexts = (guide_sites.contexts if guide_sites.contexts is not None
+                    else [None] * len(guide_sites))
+        contig_names = [""] + guide_sites.contig_names
+        guides: List[GuideWithOffTargets] = []
+        for i in range(len(guide_sites)):
+            gc = gc_content(bases[i])
+            if gc < min_gc or gc > max_gc:
+                continue
+            guides.append(GuideWithOffTargets(
+                contig=contig_names[int(guide_sites.contig_ids[i])],
+                start=int(guide_sites.positions[i]),
+                bases=bases[i],
+                forward_strand=bool(guide_sites.forward[i]),
+                sequence_context=contexts[i],
+                long_encoding=int(guide_sites.sequences[i] & STRING_MASK
+                                  | (np.uint64(1) << np.uint64(48))),
+                overflow_cap=maximum_off_targets,
+            ))
+        guides.sort(key=lambda g: g.start)
+        guide_longs = np.array([g.long_encoding for g in guides], dtype=np.uint64)
     if not guides:
         return guides
-    guide_longs = np.array([g.long_encoding for g in guides], dtype=np.uint64)
 
     if dev is None:
         # the numpy backend: traversal pruning pays only on the host scan
         bmask = (None if force_linear
                  else bin_guide_mask(db, guide_longs, max_mismatch))
-        t0 = time.time()
-        _collect_hits(db, guides, _scan_numpy(db, guide_longs, max_mismatch,
-                                              stats, bmask), stats)
-        stats.scan_seconds = time.time() - t0
+        with span("scan") as sp:
+            _collect_hits(db, guides, _scan_numpy(db, guide_longs, max_mismatch,
+                                                  stats, bmask), stats)
+        stats.scan_seconds = sp.seconds
         return guides
 
-    t0 = time.time()
-    if not force_linear:
-        # the logged count carries the reference's post-pruning semantics
-        # (Traverser.scala:66-74); the dense scan only tracks its own work
-        t_cnt = time.time()
-        stats.all_comparisons = pruned_comparisons_device(
-            db, guide_longs, max_mismatch, dev)
-        stats.counter_seconds = time.time() - t_cnt
-    if scanner is None:
-        scanner = default_scanner(db, dev)
-    _collect_hits(db, guides, scanner.scan(guide_longs, max_mismatch,
-                                           None, stats), stats)
-    if force_linear:
-        # --forceLinear skips the bin mask on the host path; mirror it
-        stats.all_comparisons = stats.dense_comparisons
-    stats.scan_seconds = time.time() - t0
+    with span("scan") as sp:
+        if not force_linear:
+            # the logged count carries the reference's post-pruning semantics
+            # (Traverser.scala:66-74); the dense scan only tracks its own work
+            with span("counter") as cnt:
+                stats.all_comparisons = pruned_comparisons_device(
+                    db, guide_longs, max_mismatch, dev)
+            stats.counter_seconds = cnt.seconds
+        if scanner is None:
+            with span("plane_build"):
+                scanner = default_scanner(db, dev)
+        _collect_hits(db, guides, scanner.scan(guide_longs, max_mismatch,
+                                               None, stats), stats)
+        if force_linear:
+            # --forceLinear skips the bin mask on the host path; mirror it
+            stats.all_comparisons = stats.dense_comparisons
+    stats.scan_seconds = sp.seconds
     return guides

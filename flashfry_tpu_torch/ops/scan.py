@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import contextlib
 import logging
-import time
 from typing import Iterator, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -42,6 +41,7 @@ from ..bitcoding import STRING_MASK
 from ..database import Database
 from ..device import resolve_device
 from ..standards import ParameterPack
+from ..trace import count, span
 from .scan_kernel import (CODE_ROWS, K_COLS, K_POSITIONS, MAX_GUIDE_ROWS,
                           OH_ROWS, codes_onehot, guide_block_layout, stage1)
 
@@ -153,16 +153,22 @@ def device_plane_codes(targets: np.ndarray, L: int, n_pad: int,
 
     Splits the words on the host (no uint64 reaches torch), uploads 8 bytes
     per target a slab at a time and expands them into a PAD_CODE-filled
-    buffer in place, so no (L, N) temporary is ever built."""
+    buffer in place, so no (L, N) temporary is ever built. Each slab's
+    steps are the spans plane_build.split, .upload and .expand (trace.py)."""
     dev = resolve_device(device)
     n = targets.shape[0]
     if n_pad < n:
         raise ValueError("n_pad %d < %d targets" % (n_pad, n))
     buf = torch.full((CODE_ROWS, n_pad), PAD_CODE, dtype=torch.int8, device=dev)
     for t_lo in range(0, n, slab):
-        lo, hi = split_words(targets[t_lo:t_lo + slab])
-        expand_codes(buf, torch.from_numpy(lo).to(dev),
-                     torch.from_numpy(hi).to(dev), t_lo, L)
+        with span("plane_build.split"):
+            lo, hi = split_words(targets[t_lo:t_lo + slab])
+        with span("plane_build.upload"):
+            d_lo = torch.from_numpy(lo).to(dev)
+            d_hi = torch.from_numpy(hi).to(dev)
+        count("plane_build.h2d_bytes", lo.nbytes + hi.nbytes)
+        with span("plane_build.expand"):
+            expand_codes(buf, d_lo, d_hi, t_lo, L)
     return buf
 
 
@@ -277,7 +283,6 @@ class DeviceScanner:
         self.db = db
         self.L = db.pack.total_scan_length
         self.n = db.num_targets
-        self.init_timings = {}
         self.mode, self.slabs = "resident", 1
         n_pad = max(self.n, 1)  # the kernel takes any width
         if planes is None:
@@ -286,11 +291,10 @@ class DeviceScanner:
             if budget is not None and CODE_ROWS * n_pad > budget:
                 self._plan_streaming(budget)
                 return
-            t0 = time.perf_counter()
             planes = device_plane_codes(db.targets, self.L, n_pad, self.device)
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.init_timings["codes_upload_expand_s"] = time.perf_counter() - t0
+                with span("plane_build.expand"):
+                    torch.cuda.synchronize(self.device)
         elif (planes.dtype != torch.int8 or planes.dim() != 2
               or planes.shape[0] != CODE_ROWS or planes.shape[1] < self.n
               or planes.device != self.device):
@@ -371,7 +375,9 @@ class DeviceScanner:
         it overwrites b with slab i + 2; the host waits for pair p's
         `copied` event before it splits into p again. The buffers live until
         the generator ends, which first waits for the card. On the CPU the
-        same loop runs without streams or events."""
+        same loop runs without streams or events. A slab's steps are the
+        spans plane_build.split, .upload and .expand (trace.py); on a card
+        the upload and expand spans time their enqueue on the copy stream."""
         dev, L, slab_n = self.device, self.L, self.slab_n
         cuda = dev.type == "cuda"
         bufs = [torch.empty((CODE_ROWS, slab_n), dtype=torch.int8, device=dev)
@@ -389,22 +395,28 @@ class DeviceScanner:
             n_valid = min(slab_n, self.n - t_lo)
             lo_h, hi_h = pairs[b]
             if cuda:
-                copied[b].synchronize()
-            lo, hi = split_words(self.db.targets[t_lo:t_lo + n_valid])
-            lo_h.numpy()[:n_valid] = lo
-            hi_h.numpy()[:n_valid] = hi
+                with span("plane_build.upload"):
+                    copied[b].synchronize()
+            with span("plane_build.split"):
+                lo, hi = split_words(self.db.targets[t_lo:t_lo + n_valid])
+                lo_h.numpy()[:n_valid] = lo
+                hi_h.numpy()[:n_valid] = hi
+            count("plane_build.h2d_bytes", lo.nbytes + hi.nbytes)
             with torch.cuda.stream(copy) if cuda else contextlib.nullcontext():
                 if cuda:
                     copy.wait_event(done[b])
                 for a in range(0, n_valid, SLAB):  # bounded device staging
                     e = min(n_valid, a + SLAB)
-                    d_lo = lo_h[a:e].to(dev, non_blocking=True)
-                    d_hi = hi_h[a:e].to(dev, non_blocking=True)
+                    with span("plane_build.upload"):
+                        d_lo = lo_h[a:e].to(dev, non_blocking=True)
+                        d_hi = hi_h[a:e].to(dev, non_blocking=True)
                     if cuda and e == n_valid:
                         copied[b].record(copy)
-                    expand_codes(bufs[b], d_lo, d_hi, a, L)
-                # a reused buffer still holds an earlier slab past n_valid
-                bufs[b][:, n_valid:] = PAD_CODE
+                    with span("plane_build.expand"):
+                        expand_codes(bufs[b], d_lo, d_hi, a, L)
+                with span("plane_build.expand"):
+                    # a reused buffer still holds an earlier slab past n_valid
+                    bufs[b][:, n_valid:] = PAD_CODE
                 if cuda:
                     ready[b].record(copy)
 

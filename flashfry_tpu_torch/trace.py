@@ -1,0 +1,155 @@
+"""Spans and counters of one discover call.
+
+A Recorder, opened for a call with `recording()` and held in a context
+variable, sums what `span` and `count` report while it is open:
+
+  spans[name]    seconds on time.perf_counter, summed over every entry (a
+                 span entered once per slab sums its slabs);
+  calls[name]    how many times the span was entered;
+  counts[name]   what `count` added.
+
+Span names are dotted paths, a child under its layer (`plane_build.split`
+under `plane_build`). A layer's self time (`Recorder.self_s`) is its span
+less the spans that closed while it was the innermost open one. While
+torch.profiler records, a span also opens `record_function("ff." + name)`,
+so it lies in the profiler's trace beside the card's kernels and copies,
+on the same clock, inside whatever span its caller opened. With no
+recorder open and no profiler recording, a span only reads the clock for
+its own `seconds`, and `count` does nothing. Tracing has no switch of its
+own: it is on where a profiler records.
+
+The spans and counters, and the benchmark metric that reads each
+(benchmark/metrics/<metric>.py, a mean per job of the window):
+
+  load                 cli: load_database              report load_s
+  guide_sites          cli: find_target_sites          report guide_sites_s,
+                                                       guide_sites_s.job
+  plane_build          cli: building the scanner       report upload_expand_s,
+                       (default_scanner, or the        plane_build_s.job
+                       multi-process scanner);
+                       engine.discover: default_scanner
+                       when it is handed no scanner
+  plane_build.split    ops/scan: split_words of a      plane_split_s.job
+                       slab, with the first-touch
+                       reads of the memory-mapped
+                       targets; streaming, also the
+                       copy into the pinned pair
+  plane_build.upload   ops/scan: the host-to-device    plane_upload_s.job
+                       copies of a slab's lo and hi
+                       words (pageable copies wait for
+                       the card's earlier work);
+                       streaming, also the host's wait
+                       for the pinned pair's last copy
+  plane_build.expand   ops/scan: expand_codes of a     plane_expand_s.job
+                       slab, and the resident build's
+                       closing wait for the card;
+                       streaming, the expand is
+                       enqueued on the copy stream and
+                       the span times the enqueue only
+  prologue             engine.discover: GC filter,     prologue_s.job
+                       guide objects, sort, guide words
+  scan                 engine.discover: counter, scan  report scan_s (scan less
+                       and collect                     counter and collect),
+                                                       scan_s.job
+  counter              engine.discover:                report counter_s,
+                       pruned_comparisons_device       counter_s.job
+  collect              engine._collect_hits            report collect_s,
+                                                       collect_s.job
+  write                cli: write_output               report write_s,
+                                                       write_s.job
+  count plane_build.h2d_bytes   bytes the plane build  plane_upload_gbps.job
+                       uploads: 8 per target           (with plane_build.upload)
+
+The sharded scanner (parallel/mesh.py) builds each shard's planes with
+device_plane_codes, so its plane_build.* spans and its byte count sum over
+the shards. A streaming scanner builds no planes in its constructor: its
+plane_build.* spans fall inside `scan`, once per slab of every scan.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import time
+from typing import Dict, Iterator, List, Optional
+
+import torch
+
+PREFIX = "ff."  # program spans in the profiler's trace
+
+
+class Recorder:
+    """Seconds and entries by span name, and counts, of one call."""
+
+    def __init__(self) -> None:
+        self.spans: Dict[str, float] = {}
+        self.calls: Dict[str, int] = {}
+        self.counts: Dict[str, int] = {}
+        self.child_s: Dict[str, float] = {}  # seconds of spans closed inside
+        self._open: List[str] = []
+
+    def self_s(self, name: str) -> float:
+        """The span's seconds less its children's."""
+        return self.spans.get(name, 0.0) - self.child_s.get(name, 0.0)
+
+
+_RECORDER: contextvars.ContextVar[Optional[Recorder]] = contextvars.ContextVar(
+    "flashfry_tpu_torch_recorder", default=None)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Recorder]:
+    """Open a Recorder for the spans and counts inside the block."""
+    rec = Recorder()
+    token = _RECORDER.set(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDER.reset(token)
+
+
+def _profiling() -> bool:
+    return bool(getattr(torch.autograd.profiler, "_is_profiler_enabled", False))
+
+
+class span:
+    """`with span(name) as s:` times the block; s.seconds is its duration
+    once it closes."""
+
+    __slots__ = ("name", "seconds", "_rec", "_rf", "_t0")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.seconds = 0.0
+
+    def __enter__(self) -> "span":
+        self._rec = _RECORDER.get()
+        self._rf = None
+        if _profiling():
+            self._rf = torch.profiler.record_function(PREFIX + self.name)
+            self._rf.__enter__()
+        if self._rec is not None:
+            self._rec._open.append(self.name)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.seconds = time.perf_counter() - self._t0
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        rec = self._rec
+        if rec is not None:
+            rec._open.pop()
+            rec.spans[self.name] = rec.spans.get(self.name, 0.0) + self.seconds
+            rec.calls[self.name] = rec.calls.get(self.name, 0) + 1
+            if rec._open:
+                parent = rec._open[-1]
+                rec.child_s[parent] = rec.child_s.get(parent, 0.0) + self.seconds
+        return False
+
+
+def count(name: str, n: int) -> None:
+    """Add n to the open recorder's counts[name]."""
+    rec = _RECORDER.get()
+    if rec is not None:
+        rec.counts[name] = rec.counts.get(name, 0) + int(n)

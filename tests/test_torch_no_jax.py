@@ -41,7 +41,7 @@ CHILD = textwrap.dedent("""
     import chip_smoke
     import flashfry_tpu_torch
     import flashfry_tpu_torch.__main__
-    from flashfry_tpu_torch import cli, device, engine, extract, random_guides, refdict
+    from flashfry_tpu_torch import cli, device, engine, extract, random_guides, refdict, trace
     from flashfry_tpu_torch.ops import _build, scan, scan_kernel, stage1_variants
     from flashfry_tpu_torch.parallel import mesh, multihost
     from flashfry_tpu_torch.scoring import (aggregate, annotations, base, off_target,
