@@ -28,7 +28,14 @@ each of which fails the run on any mismatch:
      stage-1 kernel vs plain, bitwise and timed, with its bound and library
      call, at the main path's shape (the CLI's 2048-row guide block x the
      whole database), at 1152 rows (the CLI's guides in a block padded to a
-     multiple of 128 rows) and at 1024 rows;
+     multiple of 128 rows) and at 1024 rows; the CLI's plane build spans
+     (the host copy of the raw words into pinned staging, the upload, the
+     expand) and one expand-kernel launch per slab;
+  5a. the plane build's expand kernel (csrc/planes.cu) bitwise against its
+     plain version and timed beside it and its byte bound (8 B read and 32
+     B written a target), at the build's slab of 4,194,304 targets, over
+     the whole database in one launch (equal to the CLI build's resident
+     planes), and at a slab in an odd width from an odd column;
   5b. the same database streamed through the card in target slabs, at
      bench.py's certification budget (CODE_ROWS x N / 2 bytes of planes,
      >= 3 slabs): every slab the double-buffered build hands out equals the
@@ -38,7 +45,8 @@ each of which fails the run on any mismatch:
      block; engine.discover on the streaming scanner writes phase 5's CLI
      bytes with as many launches; stage-1 kernel vs plain, bitwise and
      timed, on the last (partial) slab at the slab's shape; the streaming
-     seconds beside the resident scan and plane-build seconds;
+     seconds beside the resident scan and plane-build seconds, and the
+     streaming build's spans and kernel launches;
   5c. the port's `random` (1000 targets, seed 1) and `extract` (phase 3's
      SpCas9-NGG database) CLIs, their output read back and checked;
   5d. the same database sharded: (a) a virtual 2 db x 2 guides mesh on
@@ -105,16 +113,17 @@ read-rate probe: its bound is of the N bytes its output needs, while the
 kernel, like the TPU kernel, reads the whole one-hot by design (its entry
 says so and carries the bytes/s). K5's bound is its bytes (12 read and 8
 written per off-target, and the guide codes); no single PyTorch call
-computes it, so its library_ms is null.
+computes it, so its library_ms is null; nor does one compute the expand's,
+whose bound is its bytes too.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits 1 and prints no result. It imports neither JAX nor flashfry_tpu.
 
 profile_main_path(), not run by main(), breaks the 400 Mbp discover CLI
-down further (repeat runs at mm 3/4/5, the plane build split, a
-torch.profiler pass), and profile_streaming() the streaming scan of phase
-5b (repeat scans beside the resident build and scan, its host steps apart,
+down further (repeat runs at mm 3/4/5, the plane build's host copy,
+upload and expand apart, a torch.profiler pass), and profile_streaming() the streaming scan of phase
+5b (repeat scans beside the resident build and scan, its host copy apart,
 a torch.profiler pass):
 
     python3 -c 'import chip_smoke; chip_smoke.profile_main_path()'
@@ -152,8 +161,8 @@ from flashfry_tpu_torch import cli, engine, trace  # noqa: E402
 from flashfry_tpu_torch.bitcoding import BitEncoding  # noqa: E402
 from flashfry_tpu_torch.ops import _build  # noqa: E402
 from flashfry_tpu_torch.ops.scan import (  # noqa: E402
-    PAD_CODE, SLAB, DeviceScanner, expand_codes, guide_block_rows,
-    guide_onehot_matrix, interleaved_blocks, split_words)
+    PAD_CODE, SLAB, DeviceScanner, expand_codes, expand_codes_plain,
+    guide_block_rows, guide_onehot_matrix, interleaved_blocks, stage_words)
 from flashfry_tpu_torch.ops import stage1_variants as sv  # noqa: E402
 from flashfry_tpu_torch.parallel.mesh import ShardedScanner, make_mesh  # noqa: E402
 from flashfry_tpu_torch.ops.scan_kernel import (  # noqa: E402
@@ -182,7 +191,7 @@ K1_DESIGN = ("wgmma m64n128k32 s8 x s8 -> s32: targets as M (A, one-hot words "
              "(<= 2048 x 96 B) staged once per block in shared memory as N (B), "
              "max and >= thr folded in registers; 4 warpgroups, one block per SM")
 VARIANT_CHUNK, VARIANT_GUIDES = tool.CHUNK, tool.GUIDES  # the tool's own size
-KERNEL_LIBS = ("stage1", "stage1_variants", "descriptors")
+KERNEL_LIBS = ("stage1", "stage1_variants", "descriptors", "planes")
 VARIANTS_SRC = "flashfry_tpu_torch/csrc/stage1_variants.cu"
 # variant kernel -> (the TPU kernel it replaces, the tool's keys it runs;
 # the first key's times are the kernel's in the kernels line)
@@ -206,6 +215,13 @@ TIMED_FIELDS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # phase 7: the descriptor kernel's sizes, enzymes (L = 23 and 22) and guide
 # counts, and the score CLI's metric sets (bench.py's five and all eleven)
 DESC_TPU = "flashfry_tpu/scoring/device.py:38"
+# phase 5a: the plane build's expand kernel, which replaces an XLA function
+# of the JAX package (no Pallas kernel), and its design
+EXPAND_XLA = "flashfry_tpu/ops/scan.py:508"
+EXPAND_DESIGN = ("one block of 256 threads per 1024 consecutive targets: each "
+                 "thread packs the codes of 4 targets per row into a shared "
+                 "word, then stores each row as aligned 4-byte words (a funnel "
+                 "shift across two shared words) and its head and tail bytes")
 DESC_N = (1, 1000, 65_537, 1 << 24)
 DESC_ENZYMES = ("spcas9ngg", "spcas919")
 DESC_GUIDES = (1, 1059)
@@ -553,6 +569,7 @@ def phase_build() -> None:
     _build.stage1_library()
     _build.stage1_variants_library()
     _build.descriptors_library()
+    _build.planes_library()
     say("phase 2 build: %d libraries in %.2fs" % (len(built), time.perf_counter() - t))
     for name, (path, secs) in built.items():
         say("  %s in %.2fs (%s)" % (os.path.relpath(path, ROOT), secs,
@@ -692,6 +709,17 @@ def phase_main_path() -> dict:
     if report["guides"] != scanned.shape[0]:
         raise AssertionError("the CLI scanned %d guides, not %d"
                              % (report["guides"], scanned.shape[0]))
+    spans, counts = report["spans"], report["counts"]
+    slabs = -(-db.num_targets // SLAB)
+    if counts != {"plane_build.h2d_bytes": 8 * db.num_targets,
+                  "plane_build.kernel_slabs": slabs}:
+        raise AssertionError("plane build counts %s for %d targets in %d slabs"
+                             % (counts, db.num_targets, slabs))
+    say("  plane build: host copy into pinned staging %.4fs, upload %.4fs, "
+        "expand %.4fs (%d kernel slabs, %d bytes up)"
+        % (spans["plane_build.split"], spans["plane_build.upload"],
+           spans["plane_build.expand"], counts["plane_build.kernel_slabs"],
+           counts["plane_build.h2d_bytes"]))
 
     want = engine.pruned_comparisons(db, scanned, 4)
     if report["all_comparisons"] != want:
@@ -761,8 +789,65 @@ def phase_main_path() -> dict:
     main = {"db": db, "db_path": db_path, "fasta": fasta, "scanned": scanned, "out": out,
             "cli_s": wall,
             "resident": scanner, "hits": (t_idx, g_idx, mm), "scan_s": t_scan,
-            "build_s": built.spans["plane_build"]}
+            "build_s": built.spans["plane_build"],
+            "expand_launches": counts["plane_build.kernel_slabs"]}
     return entry, main
+
+
+def expand_timed(words: torch.Tensor, width: int, start: int, L: int,
+                 want=None) -> dict:
+    """The expand kernel against expand_codes_plain, bitwise, into
+    columns [start, start + len(words)) of a PAD_CODE-filled (32, width)
+    buffer (and, with want, the kernel's columns against want too), then
+    both timed in turns beside the kernel's byte bound: 8 bytes read and 32
+    written a target."""
+    n = words.shape[0]
+    got = torch.full((CODE_ROWS, width), PAD_CODE, dtype=torch.int8, device=DEVICE)
+    ref = got.clone()
+    expand_codes(got, words, start, L)
+    expand_codes_plain(ref, words, start, L)
+    err = max_abs_err(got, ref, "expand at (32, %d) from %d" % (width, start))
+    if want is not None and not torch.equal(got[:, start:start + n], want):
+        raise AssertionError("the expand kernel's planes differ from the build's")
+    del ref
+    p1 = cuda_ms(lambda: expand_codes_plain(got, words, start, L), 3)
+    k1 = cuda_ms(lambda: expand_codes(got, words, start, L), 20)
+    k2 = cuda_ms(lambda: expand_codes(got, words, start, L), 20)
+    p2 = cuda_ms(lambda: expand_codes_plain(got, words, start, L), 3)
+    return {"shape": [CODE_ROWS, width], "n": n, "start": start,
+            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            **bound(8 * n, CODE_ROWS * n), "library_ms": None,
+            "max_abs_err": err, "runs_ms": [p1, k1, k2, p2]}
+
+
+def phase_planes(main: dict) -> dict:
+    """Phase 5a: the plane build's expand kernel (csrc/planes.cu) against
+    its plain version, bitwise and timed with its byte bound, at the
+    build's slab (SLAB targets) and over the whole database in one launch
+    (there also equal to the resident planes the CLI's build made); then a
+    slab at an odd width and offset. Returns its kernels-line entry."""
+    db, resident = main["db"], main["resident"]
+    n, L = db.num_targets, db.pack.total_scan_length
+    words = torch.from_numpy(np.asarray(db.targets).view(np.int64)).to(DEVICE)
+    slab = expand_timed(words[:SLAB], SLAB, 0, L, resident.codes[:, :SLAB])
+    whole = expand_timed(words, n, 0, L, resident.codes)
+    odd = expand_timed(words[:SLAB], SLAB + 7, 3, L, resident.codes[:, :SLAB])
+    del words
+    for what, t in (("slab", slab), ("whole database", whole),
+                    ("odd width and offset", odd)):
+        p1, k1, k2, p2 = t.pop("runs_ms")
+        say("phase 5a expand, %s: (32, %d) from %d, %d targets: kernel %.4f ms "
+            "(%.4f, %.4f), %.1f%% of its bound %.4f ms (%s); plain %.3f ms "
+            "(%.3f, %.3f); bitwise equal"
+            % (what, t["shape"][1], t["start"], t["n"], t["ms"], k1, k2,
+               100 * t["bound_ms"] / t["ms"], t["bound_ms"], t["bound_by"],
+               t["plain_ms"], p1, p2))
+    err = max(t.pop("max_abs_err") for t in (slab, whole, odd))
+    return {"name": "expand", "route": "cuda", "design": EXPAND_DESIGN,
+            "source": "flashfry_tpu_torch/csrc/planes.cu",
+            "replaces": "none (XLA: %s _expand_codes_jit)" % EXPAND_XLA,
+            "launches": main["expand_launches"], "max_abs_err": err, **slab,
+            "variants": {"database": whole, "odd_width": odd}}
 
 
 def per_guide(hits):
@@ -802,9 +887,20 @@ def phase_streaming(kernel: dict, main: dict) -> None:
 
     stage1.launches = 0
     t = time.perf_counter()
-    hits = collect_hits(stream, scanned, 4)
+    with trace.recording() as rec:
+        hits = collect_hits(stream, scanned, 4)
     t_stream = time.perf_counter() - t
     launches = stage1.launches
+    pieces = sum(-(-min(stream.slab_n, n - lo) // SLAB)
+                 for lo in range(0, n, stream.slab_n))
+    if rec.counts != {"plane_build.h2d_bytes": 8 * n,
+                      "plane_build.kernel_slabs": pieces}:
+        raise AssertionError("streaming plane build counts %s, want %d bytes "
+                             "and %d kernel slabs" % (rec.counts, 8 * n, pieces))
+    say("  streaming plane build: host copy into pinned staging %.4fs, upload "
+        "enqueue and staging waits %.4fs, expand enqueue %.4fs, %d kernel slabs"
+        % (rec.spans["plane_build.split"], rec.spans["plane_build.upload"],
+           rec.spans["plane_build.expand"], pieces))
     want = per_guide(main["hits"])
     if launches != stream.slabs * blocks:
         raise AssertionError("%d stage-1 launches streaming %d slabs x %d blocks"
@@ -858,6 +954,9 @@ def phase_streaming(kernel: dict, main: dict) -> None:
         "kernel_only_ms": k1_kernel_only_ms(last, compact_guides(gi8), thr, ref),
         "launches": launches, "slabs": stream.slabs, "slab_n": stream.slab_n,
         "scan_s": t_stream, "discover_s": t_discover,
+        "stream_split_s": rec.spans["plane_build.split"],
+        "stream_upload_s": rec.spans["plane_build.upload"],
+        "stream_expand_s": rec.spans["plane_build.expand"],
         "resident_scan_s": main["scan_s"], "resident_build_s": main["build_s"]}
     say("  stage1 at the slab's (32, %d) x (%d, 128): kernel %.3f ms (%.3f, "
         "%.3f), plain %.3f ms, library %.3f ms, bound %.3f ms (%s), bitwise equal"
@@ -1524,8 +1623,9 @@ def profile_main_path(reps: int = 3, trace_dir: str = "") -> None:
     """Where the time of the 400 Mbp discover CLI goes. Not part of main().
 
     Runs the discover CLI of phase 5 `reps` times at mm 3, 4 and 5 (wall
-    and the CLI's report), splits the plane build into host split_words,
-    host-to-device copy and on-device expand, and runs one mm=5 call under
+    and the CLI's report), splits the plane build into the host copy into
+    pinned staging, the host-to-device copy and the expand kernel, each
+    waited for, and runs one mm=5 call under
     torch.profiler: its wall, device time, the device's idle share and the
     top operators. With trace_dir, the profiler's Chrome trace goes there."""
     if not torch.cuda.is_available():
@@ -1549,23 +1649,24 @@ def profile_main_path(reps: int = 3, trace_dir: str = "") -> None:
 
         n, L = db.num_targets, db.pack.total_scan_length
         buf = torch.full((32, n), PAD_CODE, dtype=torch.int8, device=DEVICE)
-        t_split = t_h2d = t_expand = 0.0
+        host = torch.empty(SLAB, dtype=torch.int64, pin_memory=True)
+        t_copy = t_h2d = t_expand = 0.0
         for lo in range(0, n, SLAB):
+            m = min(SLAB, n - lo)
             t = time.perf_counter()
-            w_lo, w_hi = split_words(db.targets[lo:lo + SLAB])
-            t_split += time.perf_counter() - t
+            stage_words(host[:m], db.targets[lo:lo + m])
+            t_copy += time.perf_counter() - t
             t = time.perf_counter()
-            d_lo = torch.from_numpy(w_lo).to(DEVICE)
-            d_hi = torch.from_numpy(w_hi).to(DEVICE)
+            words = host[:m].to(DEVICE, non_blocking=True)
             torch.cuda.synchronize()
             t_h2d += time.perf_counter() - t
             t = time.perf_counter()
-            expand_codes(buf, d_lo, d_hi, lo, L)
+            expand_codes(buf, words, lo, L)
             torch.cuda.synchronize()
             t_expand += time.perf_counter() - t
-        say("plane build split: split_words %.4fs, H2D %.4fs, expand %.4fs"
-            % (t_split, t_h2d, t_expand))
-        del buf
+        say("plane build apart: host copy into pinned staging %.4fs, H2D %.4fs, "
+            "expand %.4fs" % (t_copy, t_h2d, t_expand))
+        del buf, host
 
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -1601,9 +1702,10 @@ def profile_streaming(reps: int = 3) -> None:
 
     On phase 5's database and the CLI's guides at mm=4: the resident plane
     build and scan, then `reps` streaming scans at phase 5b's budget (the
-    first also allocates the pinned pairs), each wall beside the other;
-    the host steps of one scan apart (split_words per slab, the copy into
-    a pinned pair); and one streaming scan under torch.profiler."""
+    first also allocates the pinned staging buffers), each wall beside the
+    other; the host step of one scan apart (the copy of each slab's raw
+    words into pinned staging); and one streaming scan under
+    torch.profiler."""
     if not torch.cuda.is_available():
         raise SystemExit("profile_streaming needs a CUDA card")
     shutil.rmtree(WORK, ignore_errors=True)
@@ -1634,22 +1736,17 @@ def profile_streaming(reps: int = 3) -> None:
             % (stream.slabs, stream.slab_n, walls))
 
         t = time.perf_counter()
-        pair = [torch.empty(stream.slab_n, dtype=torch.int32, pin_memory=True)
-                for _ in range(2)]
+        host = torch.empty(stream.slab_n, dtype=torch.int64, pin_memory=True)
         t_pin = time.perf_counter() - t
-        t_split = t_fill = 0.0
+        t_copy = 0.0
         for lo in range(0, n, stream.slab_n):
+            m = min(stream.slab_n, n - lo)
             t = time.perf_counter()
-            w_lo, w_hi = split_words(db.targets[lo:lo + stream.slab_n])
-            t_split += time.perf_counter() - t
-            t = time.perf_counter()
-            pair[0].numpy()[:w_lo.shape[0]] = w_lo
-            pair[1].numpy()[:w_hi.shape[0]] = w_hi
-            t_fill += time.perf_counter() - t
-        say("host steps of one streaming scan: split_words %.4fs, copy into "
-            "the pinned pair %.4fs; one pinned pair allocated in %.4fs"
-            % (t_split, t_fill, t_pin))
-        del pair
+            stage_words(host[:m], db.targets[lo:lo + m])
+            t_copy += time.perf_counter() - t
+        say("host step of one streaming scan: copy into pinned staging %.4fs; "
+            "one staging buffer allocated in %.4fs" % (t_copy, t_pin))
+        del host
 
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -1809,6 +1906,7 @@ def main() -> int:
         err = phase_kernel_vs_plain()
         phase_byte_identity()
         kernel, main_path = phase_main_path()
+        planes_kernel = phase_planes(main_path)
         phase_streaming(kernel, main_path)
         phase_sharded(kernel, main_path)
         del main_path
@@ -1824,7 +1922,8 @@ def main() -> int:
     kernel["variants"].update(
         {k: {f: timed[k][f] for f in K1_FIELDS} for k in ("0", "g2")})
     say("total %.1fs" % (time.perf_counter() - t0))
-    print(json.dumps({"kernels": [kernel] + variant_kernels + [desc_kernel]}))
+    print(json.dumps({"kernels": [kernel] + variant_kernels + [desc_kernel,
+                                                              planes_kernel]}))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

@@ -110,3 +110,14 @@ def stage1_variants_library() -> ctypes.CDLL:
         fn.argtypes = [p, ll, p, i, i, *extra, p, p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def planes_library() -> ctypes.CDLL:
+    """csrc/planes.cu: the plane build's expand of packed target words."""
+    lib = load("planes")
+    p, ll = ctypes.c_void_p, ctypes.c_longlong
+    fn = lib.ff_expand_launch
+    # (words, n, L, out, stride, start, stream)
+    fn.argtypes = [p, ll, ctypes.c_int, p, ll, ll, p]
+    fn.restype = ctypes.c_int
+    return lib

@@ -30,7 +30,9 @@ escalation, no retries and no host fallback.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import logging
+import warnings
 from typing import Iterator, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -132,18 +134,123 @@ def interleaved_blocks(n_guides: int, block: int):
             for b in range(n_blocks)]
 
 
-def expand_codes(buf: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-                 start: int, L: int) -> None:
-    """Fill columns [start, start + len(lo)) of buf (32, n_pad) int8 in
-    place from the packed words of those targets: lo = bits 0..31 and
-    hi = bits 32..47 of each sequence, as int32 on buf's device. Rows >= L
-    become 0. Temporaries are (len(lo),) int32 per row."""
-    cols = buf[:, start:start + lo.shape[0]]
+def expand_codes_plain(buf: torch.Tensor, words: torch.Tensor, start: int,
+                       L: int) -> None:
+    """Plain PyTorch expand on any device: fill columns [start, start +
+    len(words)) of buf (32, n_pad) int8 in place from the packed int64 words
+    of those targets, as they lie in the database: row i < L gets base i,
+    (w >> 2 (L - 1 - i)) & 3, rows >= L get 0. The count in bits 48..63 is
+    never read (the largest shift is 46). Temporaries are (len(words),)
+    int64 per row."""
+    cols = buf[:, start:start + words.shape[0]]
     for i in range(L):
-        s = 2 * (L - 1 - i)  # bases never straddle the 32-bit split
-        w = lo if s < 32 else hi
-        cols[i] = (w >> (s % 32)) & 3
+        cols[i] = (words >> (2 * (L - 1 - i))) & 3
     cols[L:] = 0
+
+
+def expand_codes(buf: torch.Tensor, words: torch.Tensor, start: int,
+                 L: int) -> None:
+    """expand_codes_plain's function: columns [start, start + len(words)) of
+    buf from the int64 words on buf's device.
+
+    CPU tensors run expand_codes_plain. CUDA tensors launch the kernel of
+    csrc/planes.cu on the current stream (counted in expand_codes.launches,
+    and in the open recorder's plane_build.kernel_slabs); anything it does
+    not take raises, on either device: buf must be (32, >= start + n) int8
+    with contiguous rows, words (n,) int64 contiguous on buf's device, and
+    1 <= L <= K_POSITIONS. n = 0 launches nothing."""
+    n = words.shape[0]
+    if buf.dtype != torch.int8 or buf.dim() != 2 or buf.shape[0] != CODE_ROWS \
+            or buf.stride(1) != 1:
+        raise ValueError("expand_codes fills a (%d, N) int8 buffer with "
+                         "contiguous rows, got %s %s"
+                         % (CODE_ROWS, buf.dtype, tuple(buf.shape)))
+    if words.dtype != torch.int64 or words.dim() != 1 or not words.is_contiguous():
+        raise ValueError("expand_codes takes contiguous (n,) int64 words, got "
+                         "%s %s" % (words.dtype, tuple(words.shape)))
+    if words.device != buf.device:
+        raise ValueError("words on %s but buffer on %s" % (words.device, buf.device))
+    if not (0 <= start and start + n <= buf.shape[1] and 1 <= L <= K_POSITIONS):
+        raise ValueError("columns [%d, %d) of a %d-column buffer at L = %d"
+                         % (start, start + n, buf.shape[1], L))
+    if buf.device.type == "cpu":
+        expand_codes_plain(buf, words, start, L)
+        return
+    if n == 0:
+        return
+    from ._build import planes_library
+    p = ctypes.c_void_p
+    with torch.cuda.device(buf.device):
+        stream = torch.cuda.current_stream(buf.device).cuda_stream
+        err = planes_library().ff_expand_launch(
+            p(words.data_ptr()), n, L, p(buf.data_ptr()), buf.stride(0), start,
+            p(stream))
+    if err != 0:
+        raise RuntimeError("ff_expand_launch failed: cudaError %d" % err)
+    expand_codes.launches += 1
+    count("plane_build.kernel_slabs", 1)
+
+
+expand_codes.launches = 0
+
+
+def stage_words(dst: torch.Tensor, targets: np.ndarray) -> None:
+    """Copy packed uint64 target words into the int64 tensor dst (a pinned
+    staging buffer on a card) as they are: no mask, no shift, no cast. Any
+    array works, a memory-mapped database included; torch copies with its
+    CPU threads."""
+    src = np.asarray(targets, dtype=np.uint64).view(np.int64)
+    with warnings.catch_warnings():
+        # a read-only memmap: torch warns that the tensor could be written,
+        # and it is only read
+        warnings.simplefilter("ignore", UserWarning)
+        dst.copy_(torch.from_numpy(src))
+
+
+class WordStaging:
+    """The host side of every plane build: two int64 staging buffers of
+    `size` words (pinned on a card, and reused: torch's caching host
+    allocator keeps them across builds) that take turns, and their uploads
+    to `device`. On a card the uploads go on `stream` (by default the
+    device's current stream, whichever device is current) and each buffer's
+    `copied` event is recorded on that stream, so the host's wait before it
+    refills a buffer waits for that buffer's last upload."""
+
+    def __init__(self, size: int, device: torch.device,
+                 stream: Optional[torch.cuda.Stream] = None):
+        self.device = device
+        cuda = device.type == "cuda"
+        self.stream = (stream or torch.cuda.current_stream(device)) if cuda else None
+        self.host = [torch.empty(size, dtype=torch.int64, pin_memory=cuda)
+                     for _ in range(2)]
+        self.copied = [torch.cuda.Event() for _ in range(2)] if cuda else None
+        self.turn = 0
+
+    def upload(self, targets: np.ndarray,
+               piece: int = SLAB) -> Iterator[Tuple[int, torch.Tensor]]:
+        """Copy targets (at most `size` of them) raw into the next staging
+        buffer, once its last upload is done, then yield (a, words) for
+        every `piece` targets from a: words are targets[a:a + piece] as
+        int64 on the device, their upload enqueued without waiting. The
+        spans: plane_build.split (the host copy) and .upload (the wait for
+        the buffer and each enqueue); the counter plane_build.h2d_bytes."""
+        b, self.turn = self.turn, self.turn ^ 1
+        n = targets.shape[0]
+        host = self.host[b][:n]
+        if self.copied:
+            with span("plane_build.upload"):
+                self.copied[b].synchronize()
+        with span("plane_build.split"):
+            stage_words(host, targets)
+        count("plane_build.h2d_bytes", 8 * n)
+        for a in range(0, n, piece):
+            e = min(n, a + piece)
+            with span("plane_build.upload"):
+                with torch.cuda.stream(self.stream):  # a no-op without one
+                    words = host[a:e].to(self.device, non_blocking=True)
+                if self.copied and e == n:
+                    self.copied[b].record(self.stream)
+            yield a, words
 
 
 def device_plane_codes(targets: np.ndarray, L: int, n_pad: int,
@@ -151,24 +258,23 @@ def device_plane_codes(targets: np.ndarray, L: int, n_pad: int,
                        slab: int = SLAB) -> torch.Tensor:
     """Packed uint64 targets -> (32, n_pad) int8 plane codes on device.
 
-    Splits the words on the host (no uint64 reaches torch), uploads 8 bytes
-    per target a slab at a time and expands them into a PAD_CODE-filled
-    buffer in place, so no (L, N) temporary is ever built. Each slab's
-    steps are the spans plane_build.split, .upload and .expand (trace.py)."""
+    Slab by slab, WordStaging copies the raw words into a staging buffer
+    and uploads them as 8 bytes a target without waiting for the card, and
+    expand_codes turns them into codes in a PAD_CODE-filled buffer on the
+    device's current stream, so no (L, N) temporary is ever built and the
+    next slab is copied while the card uploads and expands the one before.
+    The caller waits for the card. Each slab's steps are the spans
+    plane_build.split, .upload and .expand (trace.py)."""
     dev = resolve_device(device)
     n = targets.shape[0]
     if n_pad < n:
         raise ValueError("n_pad %d < %d targets" % (n_pad, n))
     buf = torch.full((CODE_ROWS, n_pad), PAD_CODE, dtype=torch.int8, device=dev)
+    staging = WordStaging(min(slab, max(n, 1)), dev)
     for t_lo in range(0, n, slab):
-        with span("plane_build.split"):
-            lo, hi = split_words(targets[t_lo:t_lo + slab])
-        with span("plane_build.upload"):
-            d_lo = torch.from_numpy(lo).to(dev)
-            d_hi = torch.from_numpy(hi).to(dev)
-        count("plane_build.h2d_bytes", lo.nbytes + hi.nbytes)
-        with span("plane_build.expand"):
-            expand_codes(buf, d_lo, d_hi, t_lo, L)
+        for _, words in staging.upload(targets[t_lo:t_lo + slab], slab):
+            with span("plane_build.expand"):
+                expand_codes(buf, words, t_lo, L)
     return buf
 
 
@@ -226,12 +332,11 @@ def scan_reserve_bytes(cols: int) -> int:
         gathered int32 count and its int8 copy;
       - the guide tensors: the float32 one-hot upload, the block layout,
         the compacted guides and stage1's check of them, the n_active row;
-      - one plane-build piece of SLAB targets: its lo and hi words and the
-        two int32 temporaries of expand_codes."""
+      - one plane-build piece of SLAB targets: its int64 words."""
     pair = 3 * 4 + 1 + 2 * 8 + 4 + 1
     batch = COL_BATCH * (2 * CODE_ROWS + OH_ROWS + MAX_GUIDE_ROWS * pair)
     guides = MAX_GUIDE_ROWS * (4 * 4 * K_POSITIONS + OH_ROWS + 2 * K_COLS + 4)
-    build = SLAB * (2 * 4 + 2 * 4)
+    build = SLAB * 8
     return cols * HIT_COL_BYTES + batch + guides + build
 
 
@@ -266,11 +371,11 @@ class DeviceScanner:
 
     COST CONTRACT of the streaming mode, as flashfry_tpu's: every scan()
     call uploads the whole database again (the slabs cycle through the same
-    two buffers), and splits its packed words on the host again, slab by
-    slab (split_words, the same host work as the resident build). On a
-    card the next slab's split, upload and expand are enqueued on a copy
-    stream before the current slab's guide blocks run, so the upload and
-    expand can overlap the scan; the host split does not. For a
+    two buffers), and copies its packed words into pinned staging on the
+    host again, slab by slab (stage_words, the same host work as the
+    resident build). On a card the next slab's upload and expand are
+    enqueued on a copy stream before the current slab's guide blocks run,
+    so they can overlap the scan; the host copy does not. For a
     max_mismatch sweep do not call scan() per mm value: one scan at the
     largest mm yields every lower-mm hit with its exact count in the mm
     column (an mm <= k hit set is a filter of the mm <= k + 1 set).
@@ -367,53 +472,39 @@ class DeviceScanner:
         PAD_CODE past them. The caller enqueues all of a slab's work on the
         current stream before it asks for the next slab.
 
-        On a card, slab i + 1 is split on the host into one of two pinned
-        (lo, hi) pairs and uploaded and expanded on a copy stream before
-        slab i is handed out, and three event orders hold: the current
-        stream waits for a slab's `ready` event before it scans it; the
-        copy stream waits for buffer b's `done` event (slab i's work) before
-        it overwrites b with slab i + 2; the host waits for pair p's
-        `copied` event before it splits into p again. The buffers live until
-        the generator ends, which first waits for the card. On the CPU the
-        same loop runs without streams or events. A slab's steps are the
-        spans plane_build.split, .upload and .expand (trace.py); on a card
-        the upload and expand spans time their enqueue on the copy stream."""
+        On a card, slab i + 1's raw words are copied on the host into one of
+        WordStaging's two pinned int64 buffers and uploaded and expanded on a
+        copy stream before slab i is handed out, and three event orders hold:
+        the current stream waits for a slab's `ready` event before it scans
+        it; the copy stream waits for buffer b's `done` event (slab i's work)
+        before it overwrites b with slab i + 2; the host waits for a staging
+        buffer's `copied` event, recorded on the copy stream, before it
+        copies into that buffer again. The buffers
+        live until the generator ends, which first waits for the card. On
+        the CPU the same loop runs without streams or events. A slab's steps
+        are the spans plane_build.split, .upload and .expand (trace.py); on
+        a card the upload and expand spans time their enqueue on the copy
+        stream."""
         dev, L, slab_n = self.device, self.L, self.slab_n
         cuda = dev.type == "cuda"
         bufs = [torch.empty((CODE_ROWS, slab_n), dtype=torch.int8, device=dev)
                 for _ in range(2)]
-        pairs = [tuple(torch.empty(slab_n, dtype=torch.int32, pin_memory=cuda)
-                       for _ in range(2)) for _ in range(2)]
         if cuda:
             compute = torch.cuda.current_stream(dev)
             copy = torch.cuda.Stream(dev)
-            ready, done, copied = ([torch.cuda.Event() for _ in range(2)]
-                                   for _ in range(3))
+            ready, done = ([torch.cuda.Event() for _ in range(2)] for _ in range(2))
+        staging = WordStaging(slab_n, dev, copy if cuda else None)
 
         def load(t_lo: int) -> None:
             b = (t_lo // slab_n) % 2
             n_valid = min(slab_n, self.n - t_lo)
-            lo_h, hi_h = pairs[b]
-            if cuda:
-                with span("plane_build.upload"):
-                    copied[b].synchronize()
-            with span("plane_build.split"):
-                lo, hi = split_words(self.db.targets[t_lo:t_lo + n_valid])
-                lo_h.numpy()[:n_valid] = lo
-                hi_h.numpy()[:n_valid] = hi
-            count("plane_build.h2d_bytes", lo.nbytes + hi.nbytes)
             with torch.cuda.stream(copy) if cuda else contextlib.nullcontext():
                 if cuda:
                     copy.wait_event(done[b])
-                for a in range(0, n_valid, SLAB):  # bounded device staging
-                    e = min(n_valid, a + SLAB)
-                    with span("plane_build.upload"):
-                        d_lo = lo_h[a:e].to(dev, non_blocking=True)
-                        d_hi = hi_h[a:e].to(dev, non_blocking=True)
-                    if cuda and e == n_valid:
-                        copied[b].record(copy)
+                # uploaded in SLAB pieces: bounded device staging
+                for a, words in staging.upload(self.db.targets[t_lo:t_lo + n_valid]):
                     with span("plane_build.expand"):
-                        expand_codes(bufs[b], d_lo, d_hi, a, L)
+                        expand_codes(bufs[b], words, a, L)
                 with span("plane_build.expand"):
                     # a reused buffer still holds an earlier slab past n_valid
                     bufs[b][:, n_valid:] = PAD_CODE

@@ -29,23 +29,23 @@ The spans and counters, and the benchmark metric that reads each
                        multi-process scanner);
                        engine.discover: default_scanner
                        when it is handed no scanner
-  plane_build.split    ops/scan: split_words of a      plane_split_s.job
-                       slab, with the first-touch
+  plane_build.split    ops/scan: the host copy of a    plane_split_s.job
+                       slab's raw words into a
+                       staging buffer (pinned on a
+                       card), with the first-touch
                        reads of the memory-mapped
-                       targets; streaming, also the
-                       copy into the pinned pair
-  plane_build.upload   ops/scan: the host-to-device    plane_upload_s.job
-                       copies of a slab's lo and hi
-                       words (pageable copies wait for
-                       the card's earlier work);
-                       streaming, also the host's wait
-                       for the pinned pair's last copy
-  plane_build.expand   ops/scan: expand_codes of a     plane_expand_s.job
-                       slab, and the resident build's
-                       closing wait for the card;
-                       streaming, the expand is
-                       enqueued on the copy stream and
-                       the span times the enqueue only
+                       targets
+  plane_build.upload   ops/scan: the enqueue of a      plane_upload_s.job
+                       slab's host-to-device copy,
+                       and the host's wait for a free
+                       staging buffer (its copy of
+                       two slabs before)
+  plane_build.expand   ops/scan: the launch of the     plane_expand_s.job
+                       expand kernel (csrc/planes.cu)
+                       on a slab, and the resident
+                       build's closing wait for the
+                       card; streaming, on the copy
+                       stream, the launch only
   prologue             engine.discover: GC filter,     prologue_s.job
                        guide objects, sort, guide words
   scan                 engine.discover: counter, scan  report scan_s (scan less
@@ -58,7 +58,14 @@ The spans and counters, and the benchmark metric that reads each
   write                cli: write_output               report write_s,
                                                        write_s.job
   count plane_build.h2d_bytes   bytes the plane build  plane_upload_gbps.job
-                       uploads: 8 per target           (with plane_build.upload)
+                       uploads: 8 per target           (with plane_build.upload:
+                                                       bytes over the host's
+                                                       blocked seconds, not the
+                                                       link's rate)
+  count plane_build.kernel_slabs   the slabs the       none
+                       expand kernel expanded (a CPU
+                       build launches none, and counts
+                       none)
 
 The sharded scanner (parallel/mesh.py) builds each shard's planes with
 device_plane_codes, so its plane_build.* spans and its byte count sum over

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 import chip_smoke
-from flashfry_tpu_torch import cli
+from flashfry_tpu_torch import cli, trace
 from flashfry_tpu_torch.database import build_database_from_sites, save_database
 from flashfry_tpu_torch.discovery import find_target_sites
 from flashfry_tpu_torch.engine import (discover, pruned_comparisons,
@@ -30,6 +30,7 @@ from flashfry_tpu_torch.parallel.mesh import ShardedScanner, make_mesh
 from flashfry_tpu_torch.scoring import device as scoring_device
 from flashfry_tpu_torch.standards import Cas9NGGParameterPack, Cpf1ParameterPack
 from flashfry_tpu_torch.tools import experiment_stage1 as tool
+from planes_words import counted_words, with_counts
 
 pytestmark = pytest.mark.gpu
 
@@ -261,6 +262,116 @@ def test_streaming_scan_on_cuda_equals_resident(cuda, monkeypatch, pack, mm):
     got = scan_by_guide(stream, guides, mm)
     assert tk.stage1.launches - before == stream.slabs * 3
     assert got == want and sum(map(len, got.values())) > 0
+
+
+@pytest.mark.parametrize("L", [20, 21, 22, 23, 24])
+def test_expand_kernel_equals_plain(cuda, L):
+    """csrc/planes.cu against expand_codes_plain, bitwise, on words with
+    counts: widths that are not multiples of 16 (each row at another
+    alignment), an offset start, tails of 1..3 targets past whole tiles,
+    n = 0; the bytes outside the columns keep their value. One counted
+    launch per call with targets, none without."""
+    rng = np.random.default_rng(L)
+    for width, start, n in ((4099, 0, 4099), (4099, 5, 4093), (1027, 1, 1025),
+                            (2053, 13, 2040), (33, 3, 30), (17, 17, 0),
+                            (1 << 20, 0, 1 << 20), ((1 << 20) + 3, 2, 1 << 20)):
+        words = torch.from_numpy(counted_words(rng, n, L).view(np.int64))
+        start_buf = torch.from_numpy(rng.integers(-128, 128, size=(32, width),
+                                                  dtype=np.int8))
+        want = start_buf.clone()
+        scan_module.expand_codes_plain(want, words, start, L)
+        got = start_buf.to(cuda)
+        before = scan_module.expand_codes.launches
+        scan_module.expand_codes(got, words.to(cuda), start, L)
+        torch.cuda.synchronize()
+        assert scan_module.expand_codes.launches - before == (1 if n else 0)
+        assert torch.equal(got.cpu(), want), (width, start, n)
+        assert np.array_equal(want[:, start:start + n].numpy(),
+                              plane_codes(words.numpy().view(np.uint64), L))
+
+
+@pytest.mark.parametrize("pack", [Cas9NGGParameterPack, Cpf1ParameterPack],
+                         ids=lambda p: p.name)
+def test_resident_and_streaming_planes_on_cuda_equal_plane_codes(cuda, pack):
+    """The resident build (in slabs of 1,000 targets, so the two pinned
+    staging buffers are each reused) and every streamed slab equal
+    plane_codes on words with counts; the kernel's launches and
+    plane_build.kernel_slabs equal the slabs."""
+    db = with_counts(build_db(random_genome(
+        240_000 if pack is Cas9NGGParameterPack else 960_000, seed=27), pack), 3)
+    L, n = db.pack.total_scan_length, db.num_targets
+    want = torch.from_numpy(plane_codes(db.targets, L, n + 5))
+    before = scan_module.expand_codes.launches
+    with trace.recording() as rec:
+        got = scan_module.device_plane_codes(db.targets, L, n + 5, cuda, slab=1000)
+        torch.cuda.synchronize()
+    slabs = -(-n // 1000)
+    assert torch.equal(got.cpu(), want)
+    assert scan_module.expand_codes.launches - before == slabs
+    assert rec.counts == {"plane_build.h2d_bytes": 8 * n,
+                          "plane_build.kernel_slabs": slabs}
+    assert torch.equal(DeviceScanner(db, cuda).codes.cpu(), want[:, :n])
+
+    stream = DeviceScanner(db, cuda, budget=2 * 32 * scan_module.SLAB_GRANULE)
+    assert stream.mode == "streaming" and stream.slabs >= 3
+    before = scan_module.expand_codes.launches
+    with trace.recording() as rec:
+        for t_lo, codes, n_valid in stream.stream_slabs():
+            assert torch.equal(codes[:, :n_valid].cpu(), want[:, t_lo:t_lo + n_valid])
+            assert bool((codes[:, n_valid:] == scan_module.PAD_CODE).all())
+    assert scan_module.expand_codes.launches - before == stream.slabs
+    assert rec.counts == {"plane_build.h2d_bytes": 8 * n,
+                          "plane_build.kernel_slabs": stream.slabs}
+
+
+@pytest.mark.parametrize("second", [False, True], ids=["current_card", "second_card"])
+def test_plane_builds_wait_on_the_card_they_build_on(cuda, second):
+    """With cuda:0 current, the planes built on cuda:0 or on cuda:1: the
+    staging buffers' waits are on the building card's stream. That card is
+    first held busy by a spin kernel, so no upload can run before the host
+    would have copied every slab had it not waited: the build in 7
+    slabs (each staging buffer refilled thrice) still equals plane_codes
+    bitwise on words with counts, and so do the scanner's resident and
+    streaming planes and each shard of a 3-shard mesh built there."""
+    if second and torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    dev = torch.device("cuda:1" if second else "cuda:0")
+    L, n = 23, 200_000
+    words = counted_words(np.random.default_rng(7), n, L)
+    db = with_counts(build_db(random_genome(240_000, seed=31), Cas9NGGParameterPack), 5)
+    want = torch.from_numpy(plane_codes(db.targets, db.pack.total_scan_length))
+    with torch.cuda.device(0):
+        # the build's kernels loaded and device and pinned blocks cached
+        # first: a kernel's first load, cudaMalloc or cudaHostAlloc inside
+        # the build would wait for the card and hide a missing wait
+        scan_module.device_plane_codes(words[:10], L, 10, dev)
+        torch.cuda.synchronize(dev)
+        torch.empty(64 << 20, dtype=torch.int8, device=dev)
+        torch.empty(1 << 20, dtype=torch.int8, device=dev)
+        pinned = [torch.empty(1 << 15, dtype=torch.int64, pin_memory=True)
+                  for _ in range(2)]
+        del pinned
+        with torch.cuda.device(dev):
+            torch.cuda._sleep(1 << 29)  # about a quarter of a second
+        got = scan_module.device_plane_codes(words, L, n + 3, dev, slab=1 << 15)
+        torch.cuda.synchronize(dev)
+        assert got.device == dev
+        assert torch.equal(got.cpu(), torch.from_numpy(plane_codes(words, L, n + 3)))
+
+        resident = DeviceScanner(db, dev)
+        assert resident.codes.device == dev and torch.equal(resident.codes.cpu(), want)
+        stream = DeviceScanner(db, dev, budget=2 * 32 * scan_module.SLAB_GRANULE)
+        assert stream.mode == "streaming" and stream.slabs >= 3
+        for t_lo, codes, n_valid in stream.stream_slabs():
+            assert codes.device == dev
+            assert torch.equal(codes[:, :n_valid].cpu(), want[:, t_lo:t_lo + n_valid])
+        sharded = ShardedScanner(db, mesh=make_mesh(["cuda:0", dev, dev]))
+        assert sharded.D == 3 and torch.cuda.current_device() == 0
+        for (s, _q), planes in sharded.planes.items():
+            lo, nv = s * sharded.shard_n, sharded.shard_valid(s)
+            assert planes.device == (dev if s else torch.device("cuda:0"))
+            assert torch.equal(planes[:, :nv].cpu(), want[:, lo:lo + nv])
+            assert bool((planes[:, nv:] == scan_module.PAD_CODE).all())
 
 
 @pytest.mark.parametrize("pack", [Cas9NGGParameterPack, Cpf1ParameterPack],

@@ -10,6 +10,7 @@ the resident scan's and flashfry_tpu's streaming scan's.
 
 import dataclasses
 import filecmp
+import warnings
 
 import numpy as np
 import pytest
@@ -23,9 +24,10 @@ from flashfry_tpu.engine import ScanStats
 from flashfry_tpu.ops.scan import DeviceScanner as JaxScanner
 from flashfry_tpu.ops.scan import PAD_CODE, device_plane_codes, plane_codes
 from flashfry_tpu.standards import Cas9NGGParameterPack, Cpf1ParameterPack
-from flashfry_tpu_torch import cli
+from flashfry_tpu_torch import cli, trace
 from flashfry_tpu_torch import engine as port_engine
 from flashfry_tpu_torch.ops.scan import DeviceScanner, planes_from_jax
+from planes_words import counted_words, with_counts
 
 
 def random_genome(n, seed):
@@ -339,3 +341,178 @@ def test_streaming_discover_overflow_across_slabs_matches_numpy_cli(tmp_path):
         at = hits[int(np.argmax(np.cumsum(counts[hits]) > 2000))]
         crossed.append((hits[0] // scanner.slab_n, at // scanner.slab_n))
     assert any(last > first for first, last in crossed), crossed
+
+
+# --- the plane build: raw int64 words, expanded on the device ---------------
+
+@pytest.mark.parametrize("L", [20, 23, 24])
+def test_expand_plain_and_plane_build_equal_plane_codes_and_jax(L):
+    """The plain int64 expand, alone at an offset and through
+    device_plane_codes' slabs, equals plane_codes and the JAX package's
+    device_plane_codes bitwise, with counts in the words' top bits: ragged
+    slab edges, n = 0 and odd widths."""
+    rng = np.random.default_rng(L)
+    for n, n_pad, slab in ((1000, 1001, 333), (0, 7, 4), (0, 1 << 10, 1 << 10),
+                           (4096, 4099, 1000), (3001, 3001, 3001), (5, 9, 2)):
+        targets = counted_words(rng, n, L)
+        assert n == 0 or (targets >> np.uint64(48)).any()
+        want = plane_codes(targets, L, n_pad)
+        got = tscan.device_plane_codes(targets, L, n_pad, "cpu", slab=slab)
+        assert got.dtype == torch.int8 and np.array_equal(got.numpy(), want)
+        jax_slab = n_pad if n_pad <= 4 * slab else next(
+            d for d in range(slab, 0, -1) if n_pad % d == 0)
+        assert np.array_equal(
+            got.numpy(), np.asarray(device_plane_codes(targets, L, n_pad, jax_slab)))
+
+        # alone, into columns [start, start + n) of a wider buffer: the
+        # columns around them keep their bytes
+        start, width = 3, n + 8
+        buf = torch.full((32, width), 9, dtype=torch.int8)
+        tscan.expand_codes_plain(buf, torch.from_numpy(targets.view(np.int64)),
+                                 start, L)
+        assert np.array_equal(buf[:, start:start + n].numpy(), want[:, :n])
+        assert (buf[:, :start] == 9).all() and (buf[:, start + n:] == 9).all()
+
+
+def test_stage_words_copies_raw_words_from_a_read_only_memmap(tmp_path):
+    """The host's staging copy takes the database's words as they are (the
+    count bits too), from a read-only memory map without a warning, and from
+    a plain array."""
+    words = counted_words(np.random.default_rng(5), 1000, 23)
+    path = str(tmp_path / "targets.u64")
+    words.tofile(path)
+    mapped = np.memmap(path, dtype=np.uint64, mode="r")
+    for src in (mapped[100:900], words[100:900]):
+        dst = torch.empty(800, dtype=torch.int64)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            tscan.stage_words(dst, src)
+        assert np.array_equal(dst.numpy().view(np.uint64), words[100:900])
+
+
+def test_expand_codes_rejects_what_the_kernel_does_not_take():
+    buf = torch.zeros((32, 16), dtype=torch.int8)
+    words = torch.zeros(8, dtype=torch.int64)
+    tscan.expand_codes(buf, words, 8, 24)  # the last 8 columns
+    for bad_buf, bad_words, start, L in (
+            (buf.to(torch.int32), words, 0, 23),           # not int8
+            (buf[:31], words, 0, 23),                      # not 32 rows
+            (buf.t().contiguous().t(), words, 0, 23),      # rows not contiguous
+            (buf, words.to(torch.int32), 0, 23),           # not int64
+            (buf, words[::2], 0, 23),                      # words not contiguous
+            (buf, words, 9, 23),                           # past the buffer
+            (buf, words, -1, 23),
+            (buf, words, 0, 0),                            # L out of 1..24
+            (buf, words, 0, 25)):
+        with pytest.raises(ValueError):
+            tscan.expand_codes(bad_buf, bad_words, start, L)
+
+
+@pytest.mark.parametrize("pack", [Cas9NGGParameterPack, Cpf1ParameterPack],
+                         ids=lambda p: p.name)
+def test_resident_streaming_and_sharded_cpu_builds_equal_plane_codes(stream_dbs, pack):
+    """The three builds share one path: the resident planes, every streamed
+    slab (PAD_CODE past its targets) and every shard's planes equal
+    plane_codes' columns, with counts in the words."""
+    from flashfry_tpu_torch.parallel.mesh import ShardedScanner, make_mesh
+    db = with_counts(stream_dbs[pack.name][0], 11)
+    L, n = db.pack.total_scan_length, db.num_targets
+    want = plane_codes(db.targets, L)
+    assert np.array_equal(DeviceScanner(db, "cpu").codes.numpy(), want)
+    scanner = streaming(db, TWO_GRANULES)
+    slabs = 0
+    for t_lo, codes, n_valid in scanner.stream_slabs():
+        assert np.array_equal(codes[:, :n_valid].numpy(), want[:, t_lo:t_lo + n_valid])
+        assert (codes[:, n_valid:] == PAD_CODE).all()
+        slabs += 1
+    assert slabs == scanner.slabs >= 3
+    sharded = ShardedScanner(db, mesh=make_mesh(["cpu"] * 6))
+    for (s, _q), planes in sharded.planes.items():
+        lo, nv = s * sharded.shard_n, sharded.shard_valid(s)
+        assert np.array_equal(planes[:, :nv].numpy(), want[:, lo:lo + nv])
+        assert (planes[:, nv:] == PAD_CODE).all()
+    assert sum(sharded.shard_valid(s) for s in range(sharded.D)) == n
+
+
+def test_plane_build_counts_on_the_cpu(stream_dbs):
+    """8 bytes a target go up, resident or streamed, and the CPU launches
+    no kernel: plane_build.kernel_slabs is absent."""
+    db = stream_dbs[Cas9NGGParameterPack.name][0]
+    before = tscan.expand_codes.launches
+    with trace.recording() as rec:
+        DeviceScanner(db, "cpu")
+    assert rec.counts == {"plane_build.h2d_bytes": 8 * db.num_targets}
+    with trace.recording() as rec:
+        for _ in streaming(db, TWO_GRANULES).stream_slabs():
+            pass
+    assert rec.counts == {"plane_build.h2d_bytes": 8 * db.num_targets}
+    assert tscan.expand_codes.launches == before
+
+
+def expand_model(words, n, L, stride, start, addr):
+    """A numpy model of csrc/planes.cu's expand_kernel: its blocks, threads,
+    shared-memory words and the two store kinds of phase 2, over a buffer
+    whose first byte lies at device address `addr` (only addr % 4 matters).
+    Returns the (32, stride) bytes written (-1 where none) and how many
+    times each byte was written."""
+    threads, run = 256, 4
+    tile = threads * run
+    out = np.full(32 * stride, -1, dtype=np.int16)
+    hits = np.zeros(32 * stride, dtype=np.int64)
+    w = words.view(np.uint64)
+    tid = np.arange(threads)
+    for t0 in range(0, n, tile):
+        length = min(tile, n - t0)
+        c = tid[:, None] * run + np.arange(run)[None, :]               # (256, 4)
+        wk = np.where(c < length, w[np.minimum(t0 + c, n - 1)], 0).astype(np.uint64)
+        packed = np.zeros((24, threads + 1), dtype=np.uint64)
+        for i in range(L):
+            codes = (wk >> np.uint64(2 * (L - 1 - i))) & np.uint64(3)
+            packed[i, :threads] = (codes << (np.uint64(8) * np.arange(run, dtype=np.uint64))
+                                   ).sum(axis=1)
+        for r in range(32):
+            row = r * stride + start + t0                # byte offset of the row
+            a = (4 - (addr + row) % 4) % 4
+            head = min(a, length)
+            body = (length - a) & ~3 if length > a else 0
+            j = a + 4 * tid
+            full = j + 4 <= a + body
+            if r < L:
+                pair = packed[r, tid] | (packed[r, tid + 1] << np.uint64(32))
+                v = (pair >> np.uint64(8 * a)) & np.uint64(0xFFFFFFFF)
+            else:
+                v = np.zeros(threads, dtype=np.uint64)
+            for m in np.nonzero(full)[0]:
+                assert (addr + row + j[m]) % 4 == 0  # an aligned 4-byte store
+                for k in range(4):
+                    out[row + j[m] + k] = int(v[m] >> np.uint64(8 * k)) & 0xFF
+                    hits[row + j[m] + k] += 1
+            for t in range(8):
+                b = t if t < head else (a + body + t - 4 if 4 <= t < 8 else -1)
+                if t >= head and not (4 <= t < 8 and a + body + t - 4 < length):
+                    continue
+                val = int(packed[r, b >> 2] >> np.uint64(8 * (b & 3))) & 3 if r < L else 0
+                out[row + b] = val
+                hits[row + b] += 1
+    return out.reshape(32, stride), hits.reshape(32, stride)
+
+
+@pytest.mark.parametrize("stride,start,n,addr", [
+    (4096, 0, 4096, 0),          # aligned rows, whole tiles
+    (3001, 0, 3001, 0),          # odd width: each row at another alignment
+    (2053, 7, 2040, 1),          # odd start and a misaligned buffer
+    (1030, 2, 1027, 3),          # one whole tile and a 3-target tail
+    (6, 1, 5, 2),                # fewer targets than one word's head
+    (1, 0, 1, 0)])
+def test_expand_kernel_model_writes_each_column_once(stride, start, n, addr):
+    """Every byte of columns [start, start + n) of all 32 rows is written
+    exactly once, with plane_codes' code (0 on rows >= L), every word store
+    is aligned, and no byte outside those columns is touched."""
+    rng = np.random.default_rng(stride + start)
+    for L in (20, 23, 24):
+        words = counted_words(rng, n, L)
+        out, hits = expand_model(words.view(np.int64), n, L, stride, start, addr)
+        cols = slice(start, start + n)
+        assert (hits[:, cols] == 1).all()
+        assert (np.delete(hits, np.arange(start, start + n), axis=1) == 0).all()
+        assert np.array_equal(out[:, cols], plane_codes(words, L).astype(np.int16))
