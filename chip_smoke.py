@@ -711,15 +711,19 @@ def phase_main_path() -> dict:
                              % (report["guides"], scanned.shape[0]))
     spans, counts = report["spans"], report["counts"]
     slabs = -(-db.num_targets // SLAB)
-    if counts != {"plane_build.h2d_bytes": 8 * db.num_targets,
-                  "plane_build.kernel_slabs": slabs}:
+    plane = {k: v for k, v in counts.items() if k.startswith("plane_build.")}
+    card_us = plane.pop("plane_build.card_us", 0)
+    if plane != {"plane_build.h2d_bytes": 8 * db.num_targets,
+                 "plane_build.kernel_slabs": slabs} \
+            or (card_us > 0) != (DEVICE != "cpu") \
+            or card_us > 1e6 * spans["plane_build"]:
         raise AssertionError("plane build counts %s for %d targets in %d slabs"
                              % (counts, db.num_targets, slabs))
     say("  plane build: host copy into pinned staging %.4fs, upload %.4fs, "
-        "expand %.4fs (%d kernel slabs, %d bytes up)"
+        "expand %.4fs, on the card %.4fs (%d kernel slabs, %d bytes up)"
         % (spans["plane_build.split"], spans["plane_build.upload"],
-           spans["plane_build.expand"], counts["plane_build.kernel_slabs"],
-           counts["plane_build.h2d_bytes"]))
+           spans["plane_build.expand"], card_us / 1e6,
+           counts["plane_build.kernel_slabs"], counts["plane_build.h2d_bytes"]))
 
     want = engine.pruned_comparisons(db, scanned, 4)
     if report["all_comparisons"] != want:

@@ -24,6 +24,7 @@ HOST:PORT, each scans its share of the database's shards on its own
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -39,7 +40,7 @@ from .ops.scan import DeviceScanner
 from .ops.scan_kernel import stage1
 from .scoring.otbatch import BACKENDS as SCORE_BACKENDS
 from .targetio import write_output
-from .trace import recording, span
+from .trace import count, current, recording, span
 from .utils import iterate_fasta
 
 logger = logging.getLogger("flashfry_tpu_torch")
@@ -183,9 +184,10 @@ def cmd_index(args) -> None:
 
 
 def cmd_discover(args) -> dict:
-    """Run discover; returns a report of phase seconds and counts (also
-    logged as JSON). With --coordinator every process scans and returns its
-    report; only process 0 writes --output.
+    """Run discover inside the recorder that `run` opens; returns a report
+    of phase seconds and counts (also logged as JSON). With --coordinator
+    every process scans and returns its report; only process 0 writes
+    --output.
 
     The phase seconds are the call's spans (trace.py): `spans` holds every
     span's seconds by name and `counts` the counters; the top-level keys
@@ -193,38 +195,46 @@ def cmd_discover(args) -> dict:
     scanner's construction, absent with --backend numpy), counter_s,
     collect_s, scan_s (the scan span less counter and collect) and write_s."""
     multi = args.coordinator is not None
-    if multi:
-        # the numpy oracle has no multi-process form: honouring --backend
-        # numpy here would hand the user something else, so reject it
-        if args.backend == "numpy":
-            raise SystemExit("--coordinator (multi-host) requires the device "
-                             "scan; --backend numpy is single-process only")
-        if args.numProcesses is None or args.processId is None:
-            raise SystemExit("--coordinator requires --numProcesses and --processId")
-    elif args.numProcesses is not None or args.processId is not None:
-        raise SystemExit("--numProcesses and --processId require --coordinator")
-    if not (0.0 <= args.minGC <= 1.0 and 0.0 <= args.maxGC <= 1.0):
-        raise SystemExit("--minGC and --maxGC must lie in [0, 1]")
-    device = None
-    if args.backend != "numpy":
-        try:
-            device = resolve_device(args.device)
-        except RuntimeError as e:
-            raise SystemExit("flashfry_tpu_torch: %s" % e)
-
-    if not multi:
-        return _discover(args, device, multi)
-    from .parallel import multihost
-    with multihost.process_group(args.coordinator, args.numProcesses,
-                                 args.processId):
-        return _discover(args, device, multi)
+    with contextlib.ExitStack() as group:
+        with span("cli.prepare"):
+            if multi:
+                # the numpy oracle has no multi-process form: honouring
+                # --backend numpy here would hand the user something else
+                if args.backend == "numpy":
+                    raise SystemExit("--coordinator (multi-host) requires the "
+                                     "device scan; --backend numpy is "
+                                     "single-process only")
+                if args.numProcesses is None or args.processId is None:
+                    raise SystemExit("--coordinator requires --numProcesses "
+                                     "and --processId")
+            elif args.numProcesses is not None or args.processId is not None:
+                raise SystemExit("--numProcesses and --processId require "
+                                 "--coordinator")
+            if not (0.0 <= args.minGC <= 1.0 and 0.0 <= args.maxGC <= 1.0):
+                raise SystemExit("--minGC and --maxGC must lie in [0, 1]")
+            device = None
+            if args.backend != "numpy":
+                try:
+                    device = resolve_device(args.device)
+                except RuntimeError as e:
+                    raise SystemExit("flashfry_tpu_torch: %s" % e)
+            if multi:
+                from .parallel import multihost
+                group.enter_context(multihost.process_group(
+                    args.coordinator, args.numProcesses, args.processId))
+        report = _discover(args, device, multi)
+        if multi:
+            with span("release"):  # leaving the process group
+                group.close()
+    return report
 
 
 def _discover(args, device, multi: bool) -> dict:
-    with recording() as rec:
-        report = _discover_traced(args, device, multi, rec.spans)
-    report.update(spans=dict(rec.spans), counts=dict(rec.counts))
-    logger.info("discover report: %s", json.dumps(report))
+    rec = current()
+    report = _discover_traced(args, device, multi, rec.spans)
+    with span("report"):
+        report.update(spans=dict(rec.spans), counts=dict(rec.counts))
+        logger.info("discover report: %s", json.dumps(report))
     return report
 
 
@@ -283,6 +293,8 @@ def _discover_traced(args, device, multi: bool, spans: dict) -> dict:
             write_output(args.output, guides, db.bit_encoding(), db.bit_position(),
                          models=(), write_ots=True,
                          write_positions=args.positionOutput)
+            count("write.bytes", os.path.getsize(args.output))
+            count("write.rows", len(guides))
     if multi:
         report.update(gathered_bytes=scanner.dcn_allgather_bytes,
                       gather_calls=scanner.dcn_allgather_calls)
@@ -297,6 +309,9 @@ def _discover_traced(args, device, multi: bool, spans: dict) -> dict:
         overflowed_guides=sum(1 for g in guides if g.full),
         all_comparisons=stats.all_comparisons,
         dense_comparisons=stats.dense_comparisons)
+    # the call's memory maps, planes and guides are freed here, in the call
+    with span("release"):
+        del scanner, guides, gsites, db
     return report
 
 
@@ -325,13 +340,26 @@ def cmd_extract(args) -> None:
 
 def run(argv=None) -> Optional[dict]:
     """Parse argv and run the command; returns discover's or score's
-    report."""
-    args = build_parser().parse_args(argv)
-    t0 = time.perf_counter()
-    report = {"index": cmd_index, "discover": cmd_discover,
-              "score": cmd_score, "random": cmd_random,
-              "extract": cmd_extract}[args.command](args)
-    logger.info("Total runtime %.2fs", time.perf_counter() - t0)
+    report.
+
+    The call runs inside one recorder (trace.py), from the parse to the
+    closing log line. discover's report then carries every span (`spans`),
+    the spans' seconds at top level (`top_spans`), the counters (`counts`,
+    with those read when the recorder closes, which discover's own log
+    line lacks) and `call_seconds`, the recorder's seconds from open to
+    close."""
+    with recording() as rec:
+        with span("cli.parse"):
+            args = build_parser().parse_args(argv)
+        t0 = time.perf_counter()
+        report = {"index": cmd_index, "discover": cmd_discover,
+                  "score": cmd_score, "random": cmd_random,
+                  "extract": cmd_extract}[args.command](args)
+        with span("report"):
+            logger.info("Total runtime %.2fs", time.perf_counter() - t0)
+    if args.command == "discover":
+        report.update(spans=dict(rec.spans), counts=dict(rec.counts),
+                      top_spans=dict(rec.top), call_seconds=rec.seconds)
     return report
 
 

@@ -23,7 +23,7 @@ from .bitcoding import STRING_MASK
 from .database import Database
 from .discovery import DiscoveredSites
 from .targetio import GuideWithOffTargets
-from .trace import span
+from .trace import count, span
 from .utils import gc_content
 
 from .device import resolve_device
@@ -170,22 +170,32 @@ def _collect_hits(db: Database, guides: List[GuideWithOffTargets],
 
 def _assign_hits(db: Database, guides: List[GuideWithOffTargets],
                  t: np.ndarray, g: np.ndarray) -> None:
-    """_collect_hits' aggregation of the hits (t, g), in scan order."""
+    """_collect_hits' aggregation of the hits (t, g), in scan order. The
+    spans: collect.native (the cap rule and the lists of the accepted hits)
+    and collect.assign (handing each guide its lists); the counters:
+    collect.hits, collect.accepted and collect.coords (the positions copied
+    out)."""
     n_guides = len(guides)
 
     # native one-pass collect: counting-scatter by guide + cap rule + CSR
     # assembly reading the (possibly memory-mapped) database arrays in
-    # place — the numpy formulation below builds ~15 full-size temporaries
-    # and two argsorts, which costs ~25 s at 18.7M hits on hosts with slow
-    # first-touch page faults (the numpy path remains the oracle; tests
-    # pin equality)
+    # place — the numpy formulation builds ~15 full-size temporaries and two
+    # argsorts, which costs ~25 s at 18.7M hits on hosts with slow
+    # first-touch page faults (the numpy path remains the oracle; tests pin
+    # equality)
     from . import native as _native
-    caps_arr = np.fromiter((gu.overflow_cap for gu in guides),
+    with span("collect.native"):
+        caps = np.fromiter((gu.overflow_cap for gu in guides),
                            np.int64, n_guides)
-    r = _native.collect_hits(t, g, db.pos_offsets, db.positions, db.targets,
-                             caps_arr)
-    if r is not None:
-        hit_start, out_longs, coord_offsets, out_coords = r
+        r = _native.collect_hits(t, g, db.pos_offsets, db.positions,
+                                 db.targets, caps)
+        if r is None:
+            r = _collect_numpy(db, t, g, caps)
+    hit_start, out_longs, coord_offsets, out_coords = r
+    count("collect.hits", t.shape[0])
+    count("collect.accepted", out_longs.shape[0])
+    count("collect.coords", out_coords.shape[0])
+    with span("collect.assign"):
         for gi in range(n_guides):
             s, e = int(hit_start[gi]), int(hit_start[gi + 1])
             if s == e:
@@ -194,8 +204,14 @@ def _assign_hits(db: Database, guides: List[GuideWithOffTargets],
             guides[gi].set_ots_arrays(
                 out_longs[s:e],
                 out_coords[coord_offsets[s]:coord_offsets[e]], offs)
-        return
 
+
+def _collect_numpy(db: Database, t: np.ndarray, g: np.ndarray,
+                   caps: np.ndarray):
+    """native.collect_hits in numpy: (hit_start (G+1), out_longs (H),
+    coord_offsets (H+1), out_coords (C)) of the accepted hits, guide by
+    guide in scan order."""
+    n_guides = caps.shape[0]
     order = np.argsort(g, kind="stable")
     t = t[order]
     g = g[order]
@@ -218,7 +234,6 @@ def _assign_hits(db: Database, guides: List[GuideWithOffTargets],
     seg_base[nonempty] = excl[seg[:-1][nonempty]]
     within_excl = excl - seg_base[g]              # guide-local exclusive cumsum
 
-    caps = np.fromiter((gu.overflow_cap for gu in guides), np.int64, n_guides)
     accept = (caps[g] <= 0) | (within_excl < caps[g])
     t_acc = t[accept]
     g_acc = g[accept]
@@ -243,14 +258,7 @@ def _assign_hits(db: Database, guides: List[GuideWithOffTargets],
     coords = pool[flat]
 
     seg_a = np.searchsorted(g_acc, np.arange(n_guides + 1, dtype=np.int64))
-    targets = db.targets
-    for gi in range(n_guides):
-        s, e = int(seg_a[gi]), int(seg_a[gi + 1])
-        if s == e:
-            continue
-        offs = out_off[s:e + 1] - out_off[s]
-        guides[gi].set_ots_arrays(targets[t_acc[s:e]],
-                                  coords[out_off[s]:out_off[e]], offs)
+    return seg_a, db.targets[t_acc], out_off, coords
 
 
 def _pad_to(x: int, m: int) -> int:
@@ -408,9 +416,9 @@ def discover(db: Database, guide_sites: DiscoveredSites,
 
     if dev is None:
         # the numpy backend: traversal pruning pays only on the host scan
-        bmask = (None if force_linear
-                 else bin_guide_mask(db, guide_longs, max_mismatch))
         with span("scan") as sp:
+            bmask = (None if force_linear
+                     else bin_guide_mask(db, guide_longs, max_mismatch))
             _collect_hits(db, guides, _scan_numpy(db, guide_longs, max_mismatch,
                                                   stats, bmask), stats)
         stats.scan_seconds = sp.seconds

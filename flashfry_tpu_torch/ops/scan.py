@@ -31,9 +31,10 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import logging
 import warnings
-from typing import Iterator, NamedTuple, Optional, Tuple, Union
+from typing import Iterator, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -43,7 +44,7 @@ from ..bitcoding import STRING_MASK
 from ..database import Database
 from ..device import resolve_device
 from ..standards import ParameterPack
-from ..trace import count, span
+from ..trace import count, count_at_close, span
 from .scan_kernel import (CODE_ROWS, K_COLS, K_POSITIONS, MAX_GUIDE_ROWS,
                           OH_ROWS, codes_onehot, guide_block_layout, stage1)
 
@@ -214,7 +215,15 @@ class WordStaging:
     to `device`. On a card the uploads go on `stream` (by default the
     device's current stream, whichever device is current) and each buffer's
     `copied` event is recorded on that stream, so the host's wait before it
-    refills a buffer waits for that buffer's last upload."""
+    refills a buffer waits for that buffer's last upload.
+
+    On a card each piece also gets a pair of timing events on that stream,
+    in `pieces`: one just before its H2D copy is enqueued and one just
+    after the caller's work on it (the expand launch), recorded when the
+    caller asks for the next piece. A pair's start fires once the stream
+    is done with the piece before, so the pairs never overlap, and the
+    card's waits for the host's next copy fall between them:
+    card_us(pieces) sums the card's own time in them."""
 
     def __init__(self, size: int, device: torch.device,
                  stream: Optional[torch.cuda.Stream] = None):
@@ -225,6 +234,7 @@ class WordStaging:
                      for _ in range(2)]
         self.copied = [torch.cuda.Event() for _ in range(2)] if cuda else None
         self.turn = 0
+        self.pieces: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
 
     def upload(self, targets: np.ndarray,
                piece: int = SLAB) -> Iterator[Tuple[int, torch.Tensor]]:
@@ -246,11 +256,29 @@ class WordStaging:
         for a in range(0, n, piece):
             e = min(n, a + piece)
             with span("plane_build.upload"):
-                with torch.cuda.stream(self.stream):  # a no-op without one
-                    words = host[a:e].to(self.device, non_blocking=True)
-                if self.copied and e == n:
-                    self.copied[b].record(self.stream)
+                if self.copied:
+                    with torch.cuda.stream(self.stream):
+                        words = torch.empty(e - a, dtype=torch.int64,
+                                            device=self.device)
+                        start = torch.cuda.Event(enable_timing=True)
+                        start.record()  # after the allocation: only the copy
+                        words.copy_(host[a:e], non_blocking=True)
+                    if e == n:
+                        self.copied[b].record(self.stream)
+                else:
+                    words = host[a:e]
             yield a, words
+            if self.copied:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(self.stream)
+                self.pieces.append((start, end))
+
+
+def card_us(pieces: List[Tuple[torch.cuda.Event, torch.cuda.Event]]) -> int:
+    """The card's time in a WordStaging's timed pieces, summed, in whole
+    microseconds; waits for the last piece."""
+    pieces[-1][1].synchronize()
+    return round(1000 * sum(a.elapsed_time(b) for a, b in pieces))
 
 
 def device_plane_codes(targets: np.ndarray, L: int, n_pad: int,
@@ -264,7 +292,10 @@ def device_plane_codes(targets: np.ndarray, L: int, n_pad: int,
     device's current stream, so no (L, N) temporary is ever built and the
     next slab is copied while the card uploads and expands the one before.
     The caller waits for the card. Each slab's steps are the spans
-    plane_build.split, .upload and .expand (trace.py)."""
+    plane_build.split, .upload and .expand (trace.py). On a card the
+    staging's card_us is counted in plane_build.card_us when the open
+    recorder closes, after every wait of the call; only its events are
+    kept until then."""
     dev = resolve_device(device)
     n = targets.shape[0]
     if n_pad < n:
@@ -275,6 +306,9 @@ def device_plane_codes(targets: np.ndarray, L: int, n_pad: int,
         for _, words in staging.upload(targets[t_lo:t_lo + slab], slab):
             with span("plane_build.expand"):
                 expand_codes(buf, words, t_lo, L)
+    if staging.pieces:
+        count_at_close("plane_build.card_us",
+                       functools.partial(card_us, staging.pieces))
     return buf
 
 

@@ -296,7 +296,8 @@ def test_resident_and_streaming_planes_on_cuda_equal_plane_codes(cuda, pack):
     """The resident build (in slabs of 1,000 targets, so the two pinned
     staging buffers are each reused) and every streamed slab equal
     plane_codes on words with counts; the kernel's launches and
-    plane_build.kernel_slabs equal the slabs."""
+    plane_build.kernel_slabs equal the slabs, and only the resident build
+    counts its time on the card."""
     db = with_counts(build_db(random_genome(
         240_000 if pack is Cas9NGGParameterPack else 960_000, seed=27), pack), 3)
     L, n = db.pack.total_scan_length, db.num_targets
@@ -308,6 +309,7 @@ def test_resident_and_streaming_planes_on_cuda_equal_plane_codes(cuda, pack):
     slabs = -(-n // 1000)
     assert torch.equal(got.cpu(), want)
     assert scan_module.expand_codes.launches - before == slabs
+    assert rec.counts.pop("plane_build.card_us") > 0
     assert rec.counts == {"plane_build.h2d_bytes": 8 * n,
                           "plane_build.kernel_slabs": slabs}
     assert torch.equal(DeviceScanner(db, cuda).codes.cpu(), want[:, :n])
@@ -322,6 +324,44 @@ def test_resident_and_streaming_planes_on_cuda_equal_plane_codes(cuda, pack):
     assert scan_module.expand_codes.launches - before == stream.slabs
     assert rec.counts == {"plane_build.h2d_bytes": 8 * n,
                           "plane_build.kernel_slabs": stream.slabs}
+
+
+def test_plane_build_counts_its_time_on_the_card(cuda, tmp_path):
+    """A resident build, the sharded build of a 2 x 2 mesh on one card and
+    the discover CLI count plane_build.card_us, positive and no larger than
+    their plane_build span (which the sharded build's test closes after a
+    wait of its own: the scanner makes none); a streaming scanner, which
+    builds its slabs in every scan, counts none. The CLI's spans at top
+    level cover at least 95% of its call."""
+    genome = random_genome(1_000_000, seed=33)
+    db = build_db(genome, Cas9NGGParameterPack)
+    DeviceScanner(db, cuda)  # the expand kernel loaded, blocks cached
+    for build in (lambda: DeviceScanner(db, cuda),
+                  lambda: (ShardedScanner(db, mesh=make_mesh(["cuda:0"] * 4)),
+                           torch.cuda.synchronize())):
+        with trace.recording() as rec:
+            with trace.span("plane_build"):
+                build()
+            assert "plane_build.card_us" not in rec.counts  # read at close
+        assert 0 < rec.counts["plane_build.card_us"] <= 1e6 * rec.spans["plane_build"]
+
+    guides = np.asarray(db.targets[:64], dtype=np.uint64)
+    with trace.recording() as rec:
+        stream = DeviceScanner(db, cuda, budget=2 * 32 * scan_module.SLAB_GRANULE)
+        assert stream.mode == "streaming" and stream.slabs >= 3
+        assert list(stream.scan(guides, 3))
+    assert rec.counts["plane_build.h2d_bytes"] == 8 * db.num_targets
+    assert "plane_build.card_us" not in rec.counts
+
+    db_path = str(tmp_path / "db")
+    save_database(db, db_path)
+    (tmp_path / "g.fa").write_text(">g\n" + genome[5000:7000] + "\n")
+    report = cli.run(["discover", "--fasta", str(tmp_path / "g.fa"), "--database",
+                      db_path, "--output", str(tmp_path / "out"), "--device", "cuda"])
+    spans, counts = report["spans"], report["counts"]
+    assert 0 < counts["plane_build.card_us"] <= 1e6 * spans["plane_build"]
+    call = report["call_seconds"]
+    assert 0.95 * call <= sum(report["top_spans"].values()) <= call
 
 
 @pytest.mark.parametrize("second", [False, True], ids=["current_card", "second_card"])
