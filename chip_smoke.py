@@ -897,14 +897,19 @@ def phase_streaming(kernel: dict, main: dict) -> None:
     launches = stage1.launches
     pieces = sum(-(-min(stream.slab_n, n - lo) // SLAB)
                  for lo in range(0, n, stream.slab_n))
-    if rec.counts != {"plane_build.h2d_bytes": 8 * n,
-                      "plane_build.kernel_slabs": pieces}:
-        raise AssertionError("streaming plane build counts %s, want %d bytes "
-                             "and %d kernel slabs" % (rec.counts, 8 * n, pieces))
+    plane = dict(rec.counts)
+    card_us = plane.pop("plane_build.card_us", 0)
+    if plane != {"plane_build.h2d_bytes": 8 * n,
+                 "plane_build.kernel_slabs": pieces} \
+            or (card_us > 0) != (DEVICE != "cpu") or card_us > 1e6 * t_stream:
+        raise AssertionError("streaming plane build counts %s, want %d bytes, "
+                             "%d kernel slabs and the card's time"
+                             % (rec.counts, 8 * n, pieces))
     say("  streaming plane build: host copy into pinned staging %.4fs, upload "
-        "enqueue and staging waits %.4fs, expand enqueue %.4fs, %d kernel slabs"
+        "enqueue and staging waits %.4fs, expand enqueue %.4fs, on the card "
+        "%.4fs, %d kernel slabs"
         % (rec.spans["plane_build.split"], rec.spans["plane_build.upload"],
-           rec.spans["plane_build.expand"], pieces))
+           rec.spans["plane_build.expand"], card_us / 1e6, pieces))
     want = per_guide(main["hits"])
     if launches != stream.slabs * blocks:
         raise AssertionError("%d stage-1 launches streaming %d slabs x %d blocks"
@@ -961,6 +966,7 @@ def phase_streaming(kernel: dict, main: dict) -> None:
         "stream_split_s": rec.spans["plane_build.split"],
         "stream_upload_s": rec.spans["plane_build.upload"],
         "stream_expand_s": rec.spans["plane_build.expand"],
+        "stream_card_s": card_us / 1e6,
         "resident_scan_s": main["scan_s"], "resident_build_s": main["build_s"]}
     say("  stage1 at the slab's (32, %d) x (%d, 128): kernel %.3f ms (%.3f, "
         "%.3f), plain %.3f ms, library %.3f ms, bound %.3f ms (%s), bitwise equal"

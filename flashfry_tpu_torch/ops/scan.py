@@ -44,7 +44,7 @@ from ..bitcoding import STRING_MASK
 from ..database import Database
 from ..device import resolve_device
 from ..standards import ParameterPack
-from ..trace import count, count_at_close, span
+from ..trace import count, count_at_close, current, span
 from .scan_kernel import (CODE_ROWS, K_COLS, K_POSITIONS, MAX_GUIDE_ROWS,
                           OH_ROWS, codes_onehot, guide_block_layout, stage1)
 
@@ -155,11 +155,11 @@ def expand_codes(buf: torch.Tensor, words: torch.Tensor, start: int,
     buf from the int64 words on buf's device.
 
     CPU tensors run expand_codes_plain. CUDA tensors launch the kernel of
-    csrc/planes.cu on the current stream (counted in expand_codes.launches,
-    and in the open recorder's plane_build.kernel_slabs); anything it does
-    not take raises, on either device: buf must be (32, >= start + n) int8
-    with contiguous rows, words (n,) int64 contiguous on buf's device, and
-    1 <= L <= K_POSITIONS. n = 0 launches nothing."""
+    csrc/planes.cu on the current stream (counted in the open recorder's
+    plane_build.kernel_slabs); anything it does not take raises, on either
+    device: buf must be (32, >= start + n) int8 with contiguous rows, words
+    (n,) int64 contiguous on buf's device, and 1 <= L <= K_POSITIONS. n = 0
+    launches nothing."""
     n = words.shape[0]
     if buf.dtype != torch.int8 or buf.dim() != 2 or buf.shape[0] != CODE_ROWS \
             or buf.stride(1) != 1:
@@ -188,11 +188,7 @@ def expand_codes(buf: torch.Tensor, words: torch.Tensor, start: int,
             p(stream))
     if err != 0:
         raise RuntimeError("ff_expand_launch failed: cudaError %d" % err)
-    expand_codes.launches += 1
     count("plane_build.kernel_slabs", 1)
-
-
-expand_codes.launches = 0
 
 
 def stage_words(dst: torch.Tensor, targets: np.ndarray) -> None:
@@ -215,15 +211,7 @@ class WordStaging:
     to `device`. On a card the uploads go on `stream` (by default the
     device's current stream, whichever device is current) and each buffer's
     `copied` event is recorded on that stream, so the host's wait before it
-    refills a buffer waits for that buffer's last upload.
-
-    On a card each piece also gets a pair of timing events on that stream,
-    in `pieces`: one just before its H2D copy is enqueued and one just
-    after the caller's work on it (the expand launch), recorded when the
-    caller asks for the next piece. A pair's start fires once the stream
-    is done with the piece before, so the pairs never overlap, and the
-    card's waits for the host's next copy fall between them:
-    card_us(pieces) sums the card's own time in them."""
+    refills a buffer waits for that buffer's last upload."""
 
     def __init__(self, size: int, device: torch.device,
                  stream: Optional[torch.cuda.Stream] = None):
@@ -234,16 +222,17 @@ class WordStaging:
                      for _ in range(2)]
         self.copied = [torch.cuda.Event() for _ in range(2)] if cuda else None
         self.turn = 0
-        self.pieces: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
 
-    def upload(self, targets: np.ndarray,
-               piece: int = SLAB) -> Iterator[Tuple[int, torch.Tensor]]:
+    def upload(self, targets: np.ndarray) -> Tuple[torch.Tensor,
+                                                   Optional[torch.cuda.Event]]:
         """Copy targets (at most `size` of them) raw into the next staging
-        buffer, once its last upload is done, then yield (a, words) for
-        every `piece` targets from a: words are targets[a:a + piece] as
-        int64 on the device, their upload enqueued without waiting. The
-        spans: plane_build.split (the host copy) and .upload (the wait for
-        the buffer and each enqueue); the counter plane_build.h2d_bytes."""
+        buffer, once its last upload is done, and enqueue their upload
+        without waiting. Returns (words, start): words are the targets as
+        int64 on the device; start, on a card while a recorder is open, is a
+        timing event recorded on the stream just before the copy (else
+        None). The spans: plane_build.split (the host copy) and .upload (the
+        wait for the buffer and the enqueue); the counter
+        plane_build.h2d_bytes."""
         b, self.turn = self.turn, self.turn ^ 1
         n = targets.shape[0]
         host = self.host[b][:n]
@@ -253,82 +242,76 @@ class WordStaging:
         with span("plane_build.split"):
             stage_words(host, targets)
         count("plane_build.h2d_bytes", 8 * n)
-        for a in range(0, n, piece):
-            e = min(n, a + piece)
-            with span("plane_build.upload"):
-                if self.copied:
-                    with torch.cuda.stream(self.stream):
-                        words = torch.empty(e - a, dtype=torch.int64,
-                                            device=self.device)
-                        start = torch.cuda.Event(enable_timing=True)
-                        start.record()  # after the allocation: only the copy
-                        words.copy_(host[a:e], non_blocking=True)
-                    if e == n:
-                        self.copied[b].record(self.stream)
-                else:
-                    words = host[a:e]
-            yield a, words
-            if self.copied:
-                end = torch.cuda.Event(enable_timing=True)
-                end.record(self.stream)
-                self.pieces.append((start, end))
+        with span("plane_build.upload"):
+            if not self.copied:
+                return host, None
+            with torch.cuda.stream(self.stream):
+                words = torch.empty(n, dtype=torch.int64, device=self.device)
+                start = None
+                if current() is not None:
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record()  # after the allocation: only the copy
+                words.copy_(host, non_blocking=True)
+            self.copied[b].record(self.stream)
+        return words, start
 
 
 def card_us(pieces: List[Tuple[torch.cuda.Event, torch.cuda.Event]]) -> int:
-    """The card's time in a WordStaging's timed pieces, summed, in whole
+    """The card's time in a plane build's timed pieces, summed, in whole
     microseconds; waits for the last piece."""
     pieces[-1][1].synchronize()
     return round(1000 * sum(a.elapsed_time(b) for a, b in pieces))
 
 
-def device_plane_codes(targets: np.ndarray, L: int, n_pad: int,
-                       device: Union[str, torch.device],
-                       slab: int = SLAB) -> torch.Tensor:
-    """Packed uint64 targets -> (32, n_pad) int8 plane codes on device.
+def fill_planes(buf: torch.Tensor, targets: np.ndarray, L: int,
+                staging: WordStaging) -> None:
+    """Fill the (32, width) int8 planes buf from packed uint64 targets: the
+    one plane build of the resident scanner, of every shard and of every
+    streamed slab.
 
-    Slab by slab, WordStaging copies the raw words into a staging buffer
-    and uploads them as 8 bytes a target without waiting for the card, and
-    expand_codes turns them into codes in a PAD_CODE-filled buffer on the
-    device's current stream, so no (L, N) temporary is ever built and the
-    next slab is copied while the card uploads and expands the one before.
-    The caller waits for the card. Each slab's steps are the spans
-    plane_build.split, .upload and .expand (trace.py). On a card the
-    staging's card_us is counted in plane_build.card_us when the open
-    recorder closes, after every wait of the call; only its events are
-    kept until then."""
-    dev = resolve_device(device)
+    Columns [0, n) piece by piece, SLAB targets a piece: staging.upload
+    copies the piece's raw words into a staging buffer and uploads them as
+    8 bytes a target without waiting for the card, and expand_codes turns
+    them into codes, so no (L, n) temporary is ever built and the next
+    piece is copied while the card uploads and expands the one before. Then
+    PAD_CODE into columns [n, width) only: the expand writes every row of
+    its columns, so no byte of buf is written twice. All of it runs on
+    staging's stream; the caller waits for the card. The spans:
+    plane_build.split, .upload and .expand (trace.py). On a card while a
+    recorder is open, each piece's card time, from staging's event before
+    its copy to one recorded after its expand launch, is summed into
+    plane_build.card_us when the recorder closes, after every wait of the
+    call."""
     n = targets.shape[0]
-    if n_pad < n:
-        raise ValueError("n_pad %d < %d targets" % (n_pad, n))
-    buf = torch.full((CODE_ROWS, n_pad), PAD_CODE, dtype=torch.int8, device=dev)
-    staging = WordStaging(min(slab, max(n, 1)), dev)
-    for t_lo in range(0, n, slab):
-        for _, words in staging.upload(targets[t_lo:t_lo + slab], slab):
+    if buf.shape[1] < n:
+        raise ValueError("%d targets in a %d-column buffer" % (n, buf.shape[1]))
+    pieces = []
+    stream = staging.stream
+    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+        for a in range(0, n, SLAB):
+            words, start = staging.upload(targets[a:a + SLAB])
             with span("plane_build.expand"):
-                expand_codes(buf, words, t_lo, L)
-    if staging.pieces:
-        count_at_close("plane_build.card_us",
-                       functools.partial(card_us, staging.pieces))
+                expand_codes(buf, words, a, L)
+            if start is not None:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(stream)
+                pieces.append((start, end))
+        if n < buf.shape[1]:
+            with span("plane_build.expand"):
+                buf[:, n:] = PAD_CODE
+    if pieces:
+        count_at_close("plane_build.card_us", functools.partial(card_us, pieces))
+
+
+def device_plane_codes(targets: np.ndarray, L: int, n_pad: int,
+                       device: Union[str, torch.device]) -> torch.Tensor:
+    """Packed uint64 targets -> (32, n_pad) int8 plane codes on device, by
+    fill_planes into a new buffer through new staging on the device's
+    current stream. The caller waits for the card."""
+    dev = resolve_device(device)
+    buf = torch.empty((CODE_ROWS, n_pad), dtype=torch.int8, device=dev)
+    fill_planes(buf, targets, L, WordStaging(min(SLAB, max(targets.shape[0], 1)), dev))
     return buf
-
-
-def planes_from_jax(codes_np: np.ndarray,
-                    device: Union[str, torch.device]) -> torch.Tensor:
-    """The JAX scanner's resident planes (np.asarray(scanner.codes)) -> the
-    port's tensor on device. Checks the layout: int8, 32 rows, every column
-    either real (codes 0..3) or padding (all PAD_CODE), padding last."""
-    a = np.asarray(codes_np)
-    if a.dtype != np.int8 or a.ndim != 2 or a.shape[0] != CODE_ROWS:
-        raise ValueError("planes must be (%d, N) int8, got %s %s"
-                         % (CODE_ROWS, a.dtype, a.shape))
-    pad_cols = (a == PAD_CODE).all(axis=0)
-    n_real = int(np.argmax(pad_cols)) if pad_cols.any() else a.shape[1]
-    if not pad_cols[n_real:].all():
-        raise ValueError("padding columns must come after every real column")
-    real = a[:, :n_real]
-    if real.size and (real.min() < 0 or real.max() > 3):
-        raise ValueError("real columns must hold base codes 0..3")
-    return torch.tensor(a, device=resolve_device(device))  # copies
 
 
 def recount(codes: torch.Tensor, cols: torch.Tensor, guide_i8: torch.Tensor,
@@ -401,22 +384,22 @@ class DeviceScanner:
     free memory less the reserve one guide block's scan needs
     (default_budget_bytes), and on the CPU no limit. A budget below two
     slabs of SLAB_GRANULE targets raises ValueError, as long as the planes
-    do not fit it. Planes given (`planes`, from_planes) are always resident.
+    do not fit it. Resident or streamed, the planes are built by
+    fill_planes.
 
     COST CONTRACT of the streaming mode, as flashfry_tpu's: every scan()
     call uploads the whole database again (the slabs cycle through the same
     two buffers), and copies its packed words into pinned staging on the
-    host again, slab by slab (stage_words, the same host work as the
-    resident build). On a card the next slab's upload and expand are
-    enqueued on a copy stream before the current slab's guide blocks run,
-    so they can overlap the scan; the host copy does not. For a
-    max_mismatch sweep do not call scan() per mm value: one scan at the
-    largest mm yields every lower-mm hit with its exact count in the mm
-    column (an mm <= k hit set is a filter of the mm <= k + 1 set).
+    host again (fill_planes, the resident build's own routine). On a card
+    the next slab's upload and expand are enqueued on a copy stream before
+    the current slab's guide blocks run, so they can overlap the scan; the
+    host copy does not. For a max_mismatch sweep do not call scan() per mm
+    value: one scan at the largest mm yields every lower-mm hit with its
+    exact count in the mm column (an mm <= k hit set is a filter of the
+    mm <= k + 1 set).
     """
 
     def __init__(self, db: Database, device: Union[str, torch.device],
-                 planes: Optional[torch.Tensor] = None,
                  budget: Optional[int] = None):
         self.device = resolve_device(device)
         self.db = db
@@ -424,27 +407,15 @@ class DeviceScanner:
         self.n = db.num_targets
         self.mode, self.slabs = "resident", 1
         n_pad = max(self.n, 1)  # the kernel takes any width
-        if planes is None:
-            if budget is None and self.device.type == "cuda":
-                budget = default_budget_bytes(self.device, n_pad)
-            if budget is not None and CODE_ROWS * n_pad > budget:
-                self._plan_streaming(budget)
-                return
-            planes = device_plane_codes(db.targets, self.L, n_pad, self.device)
-            if self.device.type == "cuda":
-                with span("plane_build.expand"):
-                    torch.cuda.synchronize(self.device)
-        elif (planes.dtype != torch.int8 or planes.dim() != 2
-              or planes.shape[0] != CODE_ROWS or planes.shape[1] < self.n
-              or planes.device != self.device):
-            raise ValueError("planes must be (%d, >= %d) int8 on %s, got %s "
-                             "%s on %s" % (CODE_ROWS, self.n, self.device,
-                                           planes.dtype, tuple(planes.shape),
-                                           planes.device))
-        elif not bool((planes[:, self.n:] == PAD_CODE).all()):
-            raise ValueError("planes beyond the database's %d targets must "
-                             "hold PAD_CODE" % self.n)
-        self.codes = planes.contiguous()
+        if budget is None and self.device.type == "cuda":
+            budget = default_budget_bytes(self.device, n_pad)
+        if budget is not None and CODE_ROWS * n_pad > budget:
+            self._plan_streaming(budget)
+            return
+        self.codes = device_plane_codes(db.targets, self.L, n_pad, self.device)
+        if self.device.type == "cuda":
+            with span("plane_build.expand"):
+                torch.cuda.synchronize(self.device)
 
     def _plan_streaming(self, budget: int) -> None:
         """Streaming mode: the widest slab, a multiple of SLAB_GRANULE
@@ -462,15 +433,6 @@ class DeviceScanner:
         logger.info("database planes need %d bytes, the budget is %d: "
                     "streaming %d slabs of %d targets", CODE_ROWS * self.n,
                     budget, self.slabs, slab_n)
-
-    @classmethod
-    def from_planes(cls, db: Database, planes: Union[np.ndarray, torch.Tensor],
-                    device: Union[str, torch.device]) -> "DeviceScanner":
-        """A scanner on planes built elsewhere: a tensor, or the JAX
-        scanner's planes as numpy (checked by planes_from_jax)."""
-        if isinstance(planes, np.ndarray):
-            planes = planes_from_jax(planes, device)
-        return cls(db, device, planes=planes)
 
     def scan(self, guide_longs: np.ndarray, max_mismatch: int,
              bin_mask: Optional[np.ndarray] = None,
@@ -506,18 +468,18 @@ class DeviceScanner:
         PAD_CODE past them. The caller enqueues all of a slab's work on the
         current stream before it asks for the next slab.
 
-        On a card, slab i + 1's raw words are copied on the host into one of
-        WordStaging's two pinned int64 buffers and uploaded and expanded on a
-        copy stream before slab i is handed out, and three event orders hold:
-        the current stream waits for a slab's `ready` event before it scans
-        it; the copy stream waits for buffer b's `done` event (slab i's work)
-        before it overwrites b with slab i + 2; the host waits for a staging
-        buffer's `copied` event, recorded on the copy stream, before it
-        copies into that buffer again. The buffers
-        live until the generator ends, which first waits for the card. On
-        the CPU the same loop runs without streams or events. A slab's steps
-        are the spans plane_build.split, .upload and .expand (trace.py); on
-        a card the upload and expand spans time their enqueue on the copy
+        On a card, fill_planes builds slab i + 1 on a copy stream before
+        slab i is handed out, its raw words copied on the host into
+        WordStaging's two pinned int64 buffers piece by piece, and three
+        event orders hold: the current stream waits for a slab's `ready`
+        event before it scans it; the copy stream waits for buffer b's
+        `done` event (slab i's work) before it overwrites b with slab i + 2;
+        the host waits for a staging buffer's `copied` event, recorded on
+        the copy stream, before it copies into that buffer again. The
+        buffers live until the generator ends, which first waits for the
+        card. On the CPU the same loop runs without streams or events. A
+        slab's steps are fill_planes' spans and counts (trace.py); on a card
+        the upload and expand spans time their enqueue on the copy
         stream."""
         dev, L, slab_n = self.device, self.L, self.slab_n
         cuda = dev.type == "cuda"
@@ -527,23 +489,15 @@ class DeviceScanner:
             compute = torch.cuda.current_stream(dev)
             copy = torch.cuda.Stream(dev)
             ready, done = ([torch.cuda.Event() for _ in range(2)] for _ in range(2))
-        staging = WordStaging(slab_n, dev, copy if cuda else None)
+        staging = WordStaging(min(SLAB, slab_n), dev, copy if cuda else None)
 
         def load(t_lo: int) -> None:
             b = (t_lo // slab_n) % 2
-            n_valid = min(slab_n, self.n - t_lo)
-            with torch.cuda.stream(copy) if cuda else contextlib.nullcontext():
-                if cuda:
-                    copy.wait_event(done[b])
-                # uploaded in SLAB pieces: bounded device staging
-                for a, words in staging.upload(self.db.targets[t_lo:t_lo + n_valid]):
-                    with span("plane_build.expand"):
-                        expand_codes(bufs[b], words, a, L)
-                with span("plane_build.expand"):
-                    # a reused buffer still holds an earlier slab past n_valid
-                    bufs[b][:, n_valid:] = PAD_CODE
-                if cuda:
-                    ready[b].record(copy)
+            if cuda:
+                copy.wait_event(done[b])
+            fill_planes(bufs[b], self.db.targets[t_lo:t_lo + slab_n], L, staging)
+            if cuda:
+                ready[b].record(copy)
 
         try:
             starts = range(0, self.n, slab_n)

@@ -3,9 +3,11 @@
 Counterpart of flashfry_tpu/parallel/mesh.py. The database's targets are
 split over the "db" axis into contiguous, ascending shards; each guide
 block is split over the "guides" axis into sub-blocks. Device (s, q) holds
-shard s's (32, shard_n) planes (replicated over q) and scans sub-block q
-against them with the one-device scan's two halves (ops.scan.launch_block,
-then ops.scan.collect_block): stage 1 is launched on every (s, q) before
+shard s's (32, shard_n) planes, built on (s, 0) by the one-device plane
+build (ops.scan.fill_planes, with no closing wait) and copied to each
+q > 0, and scans sub-block q against them with the one-device scan's two
+halves (ops.scan.launch_block, then ops.scan.collect_block): stage 1 is
+launched on every (s, q) before
 any hit count is read, then the hits are collected shard by shard, s
 ascending and q ascending within a shard. Shards are ascending target
 ranges and each yields its hits target-major, so per guide the hits arrive
@@ -27,9 +29,9 @@ import torch
 
 from ..database import Database
 from ..device import resolve_device
-from ..ops.scan import (CODE_ROWS, PAD_CODE, collect_block, device_plane_codes,
+from ..ops.scan import (CODE_ROWS, collect_block, device_plane_codes,
                         guide_block_rows, interleaved_blocks, launch_block,
-                        planes_from_jax, scan_reserve_bytes)
+                        scan_reserve_bytes)
 
 DeviceLike = Union[str, torch.device]
 Mesh = Tuple[Tuple[Optional[torch.device], ...], ...]
@@ -62,30 +64,6 @@ def device_free_bytes(dev: torch.device) -> Optional[int]:
     return torch.cuda.mem_get_info(dev)[0]
 
 
-def planes_from_jax_sharded(codes_np: np.ndarray, D: int,
-                            shard_n_jax: int) -> List[torch.Tensor]:
-    """flashfry_tpu's ShardedScanner planes (np.asarray(scanner.codes), D
-    shards of shard_n_jax columns: global targets in order, PAD_CODE after
-    the last) -> the port's D per-shard (32, ceil(n / D)) int8 planes on
-    the CPU, PAD_CODE past each shard's targets, as ShardedScanner builds
-    them. Checks the layout as ops.scan.planes_from_jax does, and the
-    width."""
-    a = np.asarray(codes_np)
-    if a.ndim != 2 or a.shape[1] != D * shard_n_jax:
-        raise ValueError("planes of %d shards of %d columns must be %d wide, "
-                         "got %s" % (D, shard_n_jax, D * shard_n_jax, a.shape))
-    whole = planes_from_jax(a, "cpu")
-    n = int((whole != PAD_CODE).any(dim=0).sum())
-    shard_n = -(-max(n, 1) // D)
-    out = []
-    for s in range(D):
-        p = torch.full((CODE_ROWS, shard_n), PAD_CODE, dtype=torch.int8)
-        real = whole[:, s * shard_n:min(n, (s + 1) * shard_n)]
-        p[:, :real.shape[1]] = real
-        out.append(p)
-    return out
-
-
 class ShardedScanner:
     """Holds one database sharded over a (db, guides) mesh and scans guide
     batches against it (DeviceScanner.scan's interface).
@@ -94,8 +72,10 @@ class ShardedScanner:
     devices every visible card (pick_devices("cuda")). All its devices have
     one type. Shard s owns the global targets [s * shard_n, (s + 1) *
     shard_n), shard_n = ceil(n / D); its planes are built on (s, 0)'s
-    device from that range only, PAD_CODE past its last target, and copied
-    device to device to each (s, q > 0): each (s, q) holds its own. A shard
+    device from that range only (ops.scan.device_plane_codes), PAD_CODE
+    past its last target, and copied device to device to each (s, q > 0):
+    each (s, q) holds its own. The constructor makes no closing wait: a
+    card's scan is ordered after its build on the card's stream. A shard
     whose planes exceed its card's free memory less the scan's reserve
     raises ValueError: there is no sharded streaming and no fallback.
     """

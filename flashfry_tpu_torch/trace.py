@@ -44,22 +44,24 @@ The spans and counters, and the benchmark metric that reads each
                        engine.discover: default_scanner
                        when it is handed no scanner
   plane_build.split    ops/scan: the host copy of a    plane_split_s.job
-                       slab's raw words into a
+                       piece's raw words into a
                        staging buffer (pinned on a
                        card), with the first-touch
                        reads of the memory-mapped
                        targets
   plane_build.upload   ops/scan: the enqueue of a      plane_upload_s.job
-                       slab's host-to-device copy,
+                       piece's host-to-device copy,
                        and the host's wait for a free
                        staging buffer (its copy of
-                       two slabs before)
+                       two pieces before)
   plane_build.expand   ops/scan: the launch of the     plane_expand_s.job
                        expand kernel (csrc/planes.cu)
-                       on a slab, and the resident or
-                       sharded build's closing wait for
-                       the card; streaming, on the copy
-                       stream, the launch only
+                       on a piece, the PAD_CODE fill
+                       past the last target, and the
+                       resident build's closing wait
+                       for the card (the sharded build
+                       makes none); streaming, on the
+                       copy stream, the launches only
   prologue             engine.discover: GC filter,     prologue_s.job
                        guide objects, sort, guide words
   scan                 engine.discover: counter, scan  report scan_s (scan less
@@ -93,21 +95,22 @@ The spans and counters, and the benchmark metric that reads each
                                                        bytes over the host's
                                                        blocked seconds, not the
                                                        link's rate)
-  count plane_build.kernel_slabs   the slabs the       none
+  count plane_build.kernel_slabs   the pieces the      none
                        expand kernel expanded (a CPU
                        build launches none, and counts
                        none)
   count plane_build.card_us   the card's microseconds  plane_card_s.job
-                       of a resident or sharded build:
-                       per slab, CUDA events on the
+                       of every build on a card,
+                       resident, sharded or streamed:
+                       per piece, CUDA events on the
                        upload stream just before its
                        upload and just after its
                        expand launch, summed (the
                        card's waits for the host's
                        copy and the PAD fill fall
                        outside); read when the
-                       recorder closes (streaming and
-                       CPU builds count none)
+                       recorder closes (CPU builds
+                       count none)
   count collect.hits   hits handed to _assign_hits     collect_us_per_hit.job
   count collect.accepted   hits kept under the         none
                        overflow cap
@@ -116,11 +119,11 @@ The spans and counters, and the benchmark metric that reads each
   count write.bytes    the output file's size          write_mbps.job
   count write.rows     the output's rows (one a guide) none
 
-The sharded scanner (parallel/mesh.py) builds each shard's planes with
-device_plane_codes, so its plane_build.* spans and its byte and card
-counts sum over the shards. A streaming scanner builds no planes in its
-constructor: its plane_build.* spans fall inside `scan`, once per slab of
-every scan.
+Every plane build is ops/scan.fill_planes, in pieces of SLAB targets:
+the sharded scanner's (parallel/mesh.py) plane_build.* spans and its byte
+and card counts sum over the shards. A streaming scanner builds no planes
+in its constructor: its plane_build.* spans and counts fall inside `scan`,
+once per slab of every scan.
 """
 
 from __future__ import annotations

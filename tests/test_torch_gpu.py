@@ -269,8 +269,8 @@ def test_expand_kernel_equals_plain(cuda, L):
     """csrc/planes.cu against expand_codes_plain, bitwise, on words with
     counts: widths that are not multiples of 16 (each row at another
     alignment), an offset start, tails of 1..3 targets past whole tiles,
-    n = 0; the bytes outside the columns keep their value. One counted
-    launch per call with targets, none without."""
+    n = 0; the bytes outside the columns keep their value. One launch per
+    call with targets, none without, in plane_build.kernel_slabs."""
     rng = np.random.default_rng(L)
     for width, start, n in ((4099, 0, 4099), (4099, 5, 4093), (1027, 1, 1025),
                             (2053, 13, 2040), (33, 3, 30), (17, 17, 0),
@@ -281,10 +281,10 @@ def test_expand_kernel_equals_plain(cuda, L):
         want = start_buf.clone()
         scan_module.expand_codes_plain(want, words, start, L)
         got = start_buf.to(cuda)
-        before = scan_module.expand_codes.launches
-        scan_module.expand_codes(got, words.to(cuda), start, L)
+        with trace.recording() as rec:
+            scan_module.expand_codes(got, words.to(cuda), start, L)
         torch.cuda.synchronize()
-        assert scan_module.expand_codes.launches - before == (1 if n else 0)
+        assert rec.counts.get("plane_build.kernel_slabs", 0) == (1 if n else 0)
         assert torch.equal(got.cpu(), want), (width, start, n)
         assert np.array_equal(want[:, start:start + n].numpy(),
                               plane_codes(words.numpy().view(np.uint64), L))
@@ -292,38 +292,58 @@ def test_expand_kernel_equals_plain(cuda, L):
 
 @pytest.mark.parametrize("pack", [Cas9NGGParameterPack, Cpf1ParameterPack],
                          ids=lambda p: p.name)
-def test_resident_and_streaming_planes_on_cuda_equal_plane_codes(cuda, pack):
-    """The resident build (in slabs of 1,000 targets, so the two pinned
+def test_resident_and_streaming_planes_on_cuda_equal_plane_codes(cuda, pack,
+                                                                 monkeypatch):
+    """The resident build (in pieces of 1,000 targets, so the two pinned
     staging buffers are each reused) and every streamed slab equal
-    plane_codes on words with counts; the kernel's launches and
-    plane_build.kernel_slabs equal the slabs, and only the resident build
-    counts its time on the card."""
+    plane_codes on words with counts; plane_build.kernel_slabs counts the
+    pieces, and both builds count their time on the card."""
+    monkeypatch.setattr(scan_module, "SLAB", 1000)
     db = with_counts(build_db(random_genome(
         240_000 if pack is Cas9NGGParameterPack else 960_000, seed=27), pack), 3)
     L, n = db.pack.total_scan_length, db.num_targets
     want = torch.from_numpy(plane_codes(db.targets, L, n + 5))
-    before = scan_module.expand_codes.launches
     with trace.recording() as rec:
-        got = scan_module.device_plane_codes(db.targets, L, n + 5, cuda, slab=1000)
+        got = scan_module.device_plane_codes(db.targets, L, n + 5, cuda)
         torch.cuda.synchronize()
-    slabs = -(-n // 1000)
+    pieces = -(-n // 1000)
     assert torch.equal(got.cpu(), want)
-    assert scan_module.expand_codes.launches - before == slabs
     assert rec.counts.pop("plane_build.card_us") > 0
     assert rec.counts == {"plane_build.h2d_bytes": 8 * n,
-                          "plane_build.kernel_slabs": slabs}
+                          "plane_build.kernel_slabs": pieces}
     assert torch.equal(DeviceScanner(db, cuda).codes.cpu(), want[:, :n])
 
     stream = DeviceScanner(db, cuda, budget=2 * 32 * scan_module.SLAB_GRANULE)
     assert stream.mode == "streaming" and stream.slabs >= 3
-    before = scan_module.expand_codes.launches
     with trace.recording() as rec:
         for t_lo, codes, n_valid in stream.stream_slabs():
             assert torch.equal(codes[:, :n_valid].cpu(), want[:, t_lo:t_lo + n_valid])
             assert bool((codes[:, n_valid:] == scan_module.PAD_CODE).all())
-    assert scan_module.expand_codes.launches - before == stream.slabs
+    pieces = sum(-(-min(stream.slab_n, n - lo) // 1000)
+                 for lo in range(0, n, stream.slab_n))
+    assert rec.counts.pop("plane_build.card_us") > 0
     assert rec.counts == {"plane_build.h2d_bytes": 8 * n,
-                          "plane_build.kernel_slabs": stream.slabs}
+                          "plane_build.kernel_slabs": pieces}
+
+
+@pytest.mark.parametrize("pack", [Cas9NGGParameterPack, Cpf1ParameterPack],
+                         ids=lambda p: p.name)
+def test_fill_planes_on_cuda_overwrites_every_byte_of_a_sentinel_buffer(
+        cuda, pack, monkeypatch):
+    """The one plane build on the card, handed a buffer of 9s, in pieces of
+    1,000 targets (ragged last piece) and at an odd width: every real column
+    equals plane_codes (K3 writes rows >= L as 0) and every later column is
+    PAD_CODE, so nothing of the buffer's old bytes is left."""
+    monkeypatch.setattr(scan_module, "SLAB", 1000)
+    db = with_counts(build_db(random_genome(
+        240_000 if pack is Cas9NGGParameterPack else 960_000, seed=29), pack), 5)
+    L, n = db.pack.total_scan_length, db.num_targets
+    assert n % 1000 and n > 3000
+    buf = torch.full((32, n + 37), 9, dtype=torch.int8, device=cuda)
+    scan_module.fill_planes(buf, db.targets, L, scan_module.WordStaging(1000, buf.device))
+    torch.cuda.synchronize()
+    assert torch.equal(buf[:, :n].cpu(), torch.from_numpy(plane_codes(db.targets, L)))
+    assert bool((buf[:, n:] == scan_module.PAD_CODE).all())
 
 
 def test_plane_build_counts_its_time_on_the_card(cuda, tmp_path):
@@ -331,8 +351,9 @@ def test_plane_build_counts_its_time_on_the_card(cuda, tmp_path):
     the discover CLI count plane_build.card_us, positive and no larger than
     their plane_build span (which the sharded build's test closes after a
     wait of its own: the scanner makes none); a streaming scanner, which
-    builds its slabs in every scan, counts none. The CLI's spans at top
-    level cover at least 95% of its call."""
+    builds its slabs in every scan, counts it too, positive and no larger
+    than its scan span. The CLI's spans at top level cover at least 95% of
+    its call."""
     genome = random_genome(1_000_000, seed=33)
     db = build_db(genome, Cas9NGGParameterPack)
     DeviceScanner(db, cuda)  # the expand kernel loaded, blocks cached
@@ -349,9 +370,10 @@ def test_plane_build_counts_its_time_on_the_card(cuda, tmp_path):
     with trace.recording() as rec:
         stream = DeviceScanner(db, cuda, budget=2 * 32 * scan_module.SLAB_GRANULE)
         assert stream.mode == "streaming" and stream.slabs >= 3
-        assert list(stream.scan(guides, 3))
+        with trace.span("scan"):
+            assert list(stream.scan(guides, 3))
     assert rec.counts["plane_build.h2d_bytes"] == 8 * db.num_targets
-    assert "plane_build.card_us" not in rec.counts
+    assert 0 < rec.counts["plane_build.card_us"] <= 1e6 * rec.spans["scan"]
 
     db_path = str(tmp_path / "db")
     save_database(db, db_path)
@@ -365,18 +387,19 @@ def test_plane_build_counts_its_time_on_the_card(cuda, tmp_path):
 
 
 @pytest.mark.parametrize("second", [False, True], ids=["current_card", "second_card"])
-def test_plane_builds_wait_on_the_card_they_build_on(cuda, second):
+def test_plane_builds_wait_on_the_card_they_build_on(cuda, second, monkeypatch):
     """With cuda:0 current, the planes built on cuda:0 or on cuda:1: the
     staging buffers' waits are on the building card's stream. That card is
     first held busy by a spin kernel, so no upload can run before the host
     would have copied every slab had it not waited: the build in 7
-    slabs (each staging buffer refilled thrice) still equals plane_codes
+    pieces (each staging buffer refilled thrice) still equals plane_codes
     bitwise on words with counts, and so do the scanner's resident and
     streaming planes and each shard of a 3-shard mesh built there."""
     if second and torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards")
     dev = torch.device("cuda:1" if second else "cuda:0")
     L, n = 23, 200_000
+    monkeypatch.setattr(scan_module, "SLAB", 1 << 15)
     words = counted_words(np.random.default_rng(7), n, L)
     db = with_counts(build_db(random_genome(240_000, seed=31), Cas9NGGParameterPack), 5)
     want = torch.from_numpy(plane_codes(db.targets, db.pack.total_scan_length))
@@ -393,7 +416,7 @@ def test_plane_builds_wait_on_the_card_they_build_on(cuda, second):
         del pinned
         with torch.cuda.device(dev):
             torch.cuda._sleep(1 << 29)  # about a quarter of a second
-        got = scan_module.device_plane_codes(words, L, n + 3, dev, slab=1 << 15)
+        got = scan_module.device_plane_codes(words, L, n + 3, dev)
         torch.cuda.synchronize(dev)
         assert got.device == dev
         assert torch.equal(got.cpu(), torch.from_numpy(plane_codes(words, L, n + 3)))

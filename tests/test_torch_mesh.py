@@ -29,8 +29,7 @@ from flashfry_tpu_torch.engine import ScanStats, discover
 from flashfry_tpu_torch.ops import scan as scan_ops
 from flashfry_tpu_torch.ops.scan import DeviceScanner
 from flashfry_tpu_torch.parallel import mesh
-from flashfry_tpu_torch.parallel.mesh import (ShardedScanner, make_mesh, pick_devices,
-                                              planes_from_jax_sharded)
+from flashfry_tpu_torch.parallel.mesh import ShardedScanner, make_mesh, pick_devices
 
 PACKS = [Cas9NGGParameterPack, Cpf1ParameterPack]
 
@@ -154,24 +153,29 @@ def test_max_mismatch_at_or_beyond_active_positions_matches_the_oracle(pack, ove
     assert [len(v) for v in got.values()] == [db.num_targets] * 2
 
 
-def test_planes_from_jax_sharded_equal_the_ports_shards():
+def test_sharded_planes_equal_the_jax_sharded_scanners_codes():
+    """Shard by shard, the port's planes on ["cpu"] * 4 (2 x 2) hold the JAX
+    sharded scanner's columns of the shard's global targets, PAD_CODE past
+    them; each (s, q) holds its own copy. The shards differ in width (the
+    JAX scanner pads each to its chunk), so the test slices by target."""
     genome, _unit = family_genome(seed=19, n=50_000)
     db = build_db(genome, Cas9NGGParameterPack)
+    n = db.num_targets
     jax_scanner = JaxSharded(db, mesh=jax_mesh(4), use_pallas=False, chunk=1 << 12)
     codes = np.asarray(jax_scanner.codes)
-    assert codes.shape[1] == jax_scanner.D * jax_scanner.shard_n > db.num_targets
-    planes = planes_from_jax_sharded(codes, jax_scanner.D, jax_scanner.shard_n)
-    own = ShardedScanner(db, mesh=make_mesh(["cpu"] * 4))
-    assert len(planes) == own.D == jax_scanner.D
-    for s, p in enumerate(planes):
-        assert torch.equal(p, own.planes[s, 0]) and torch.equal(p, own.planes[s, 1])
+    assert codes.shape[1] == jax_scanner.D * jax_scanner.shard_n > n
+    assert (codes[:, n:] == scan_ops.PAD_CODE).all()
+    own = ShardedScanner(db, ["cpu"] * 4)
+    assert (own.D, own.Gx) == (jax_scanner.D, 2)
+    assert n % own.shard_n  # a short last shard
+    for s in range(own.D):
+        lo, nv = s * own.shard_n, own.shard_valid(s)
+        for q in range(own.Gx):
+            p = own.planes[s, q].numpy()
+            assert p.shape == (32, own.shard_n)
+            assert np.array_equal(p[:, :nv], codes[:, lo:lo + nv])
+            assert (p[:, nv:] == scan_ops.PAD_CODE).all()
         assert own.planes[s, 0].data_ptr() != own.planes[s, 1].data_ptr()  # one each
-    with pytest.raises(ValueError):  # not D shards of shard_n_jax columns
-        planes_from_jax_sharded(codes[:, :-1], jax_scanner.D, jax_scanner.shard_n)
-    gap = codes.copy()
-    gap[:, 3] = 4                    # padding before a real column
-    with pytest.raises(ValueError):
-        planes_from_jax_sharded(gap, jax_scanner.D, jax_scanner.shard_n)
 
 
 def test_stage1_runs_on_every_shard_before_any_hits_are_read(monkeypatch):

@@ -26,7 +26,7 @@ from flashfry_tpu.ops.scan import PAD_CODE, device_plane_codes, plane_codes
 from flashfry_tpu.standards import Cas9NGGParameterPack, Cpf1ParameterPack
 from flashfry_tpu_torch import cli, trace
 from flashfry_tpu_torch import engine as port_engine
-from flashfry_tpu_torch.ops.scan import DeviceScanner, planes_from_jax
+from flashfry_tpu_torch.ops.scan import DeviceScanner
 from planes_words import counted_words, with_counts
 
 
@@ -81,60 +81,20 @@ def test_device_scanner_matches_jax_scanner_and_oracle(pack):
                                           s_jax.dense_comparisons)
 
 
-def test_device_plane_codes_matches_host_and_jax():
+def test_device_plane_codes_matches_host_and_jax(monkeypatch):
     rng = np.random.default_rng(3)
     for n, n_pad, slab in ((1000, 1 << 12, 1 << 10), (0, 1 << 10, 1 << 10),
                            (1 << 12, 1 << 12, 1 << 12), (3000, 4096, 1 << 12)):
         targets = rng.integers(0, 1 << 46, size=n, dtype=np.uint64)
         want = plane_codes(targets, 23, n_pad)
-        # the port's slabs need not divide n_pad (JAX's must)
-        got = tscan.device_plane_codes(targets, 23, n_pad, "cpu", slab=slab // 4 + 7)
+        # the port's pieces need not divide n_pad (JAX's slabs must)
+        monkeypatch.setattr(tscan, "SLAB", slab // 4 + 7)
+        got = tscan.device_plane_codes(targets, 23, n_pad, "cpu")
         assert got.dtype == torch.int8 and got.shape == want.shape
         assert np.array_equal(got.numpy(), want)
         assert np.array_equal(
             got.numpy(), np.asarray(device_plane_codes(targets, 23, n_pad, slab)))
         assert (got.numpy()[:, n:] == PAD_CODE).all()
-
-
-def test_planes_from_jax_carries_the_scanner_state_across():
-    genome = random_genome(40000, seed=31)
-    db = build_db(genome, Cas9NGGParameterPack)
-    guides = np.asarray(find_target_sites(iter([("g", genome[900:1500])]),
-                                          Cas9NGGParameterPack).sequences)
-    jax_scanner = JaxScanner(db, use_pallas=False, chunk=1 << 12)
-    planes = np.asarray(jax_scanner.codes)
-    assert planes.shape[1] > db.num_targets  # JAX pads to its chunk
-    port = DeviceScanner.from_planes(db, planes, "cpu")
-    assert np.array_equal(port.codes.numpy(), planes)
-    got = by_guide(port.scan(guides, 4))
-    assert got == by_guide(jax_scanner.scan(guides, 4)) == oracle(db, guides, 4)
-
-
-def test_planes_are_validated():
-    good = plane_codes(np.arange(5, dtype=np.uint64), 23, 16)
-    with pytest.raises(ValueError):
-        planes_from_jax(good.astype(np.int32), "cpu")
-    with pytest.raises(ValueError):
-        planes_from_jax(good[:31], "cpu")
-    gap = good.copy()
-    gap[:, 2] = PAD_CODE          # padding before a real column
-    with pytest.raises(ValueError):
-        planes_from_jax(gap, "cpu")
-    bad = good.copy()
-    bad[0, 1] = 5
-    with pytest.raises(ValueError):
-        planes_from_jax(bad, "cpu")
-
-    db = build_db(random_genome(3000, seed=2), Cas9NGGParameterPack)
-    n = db.num_targets
-    planes = torch.from_numpy(plane_codes(db.targets, 23, n + 8))
-    DeviceScanner.from_planes(db, planes, "cpu")
-    with pytest.raises(ValueError):
-        DeviceScanner.from_planes(db, planes[:, :n - 1].contiguous(), "cpu")
-    dirty = planes.clone()
-    dirty[0, n] = 0               # a non-PAD column past the database
-    with pytest.raises(ValueError):
-        DeviceScanner.from_planes(db, dirty, "cpu")
 
 
 def test_col_batch_smaller_than_hit_columns_matches_oracle(monkeypatch):
@@ -346,18 +306,19 @@ def test_streaming_discover_overflow_across_slabs_matches_numpy_cli(tmp_path):
 # --- the plane build: raw int64 words, expanded on the device ---------------
 
 @pytest.mark.parametrize("L", [20, 23, 24])
-def test_expand_plain_and_plane_build_equal_plane_codes_and_jax(L):
+def test_expand_plain_and_plane_build_equal_plane_codes_and_jax(L, monkeypatch):
     """The plain int64 expand, alone at an offset and through
-    device_plane_codes' slabs, equals plane_codes and the JAX package's
-    device_plane_codes bitwise, with counts in the words' top bits: ragged
-    slab edges, n = 0 and odd widths."""
+    device_plane_codes' pieces of SLAB targets, equals plane_codes and the
+    JAX package's device_plane_codes bitwise, with counts in the words' top
+    bits: ragged piece edges, n = 0 and odd widths."""
     rng = np.random.default_rng(L)
     for n, n_pad, slab in ((1000, 1001, 333), (0, 7, 4), (0, 1 << 10, 1 << 10),
                            (4096, 4099, 1000), (3001, 3001, 3001), (5, 9, 2)):
         targets = counted_words(rng, n, L)
         assert n == 0 or (targets >> np.uint64(48)).any()
         want = plane_codes(targets, L, n_pad)
-        got = tscan.device_plane_codes(targets, L, n_pad, "cpu", slab=slab)
+        monkeypatch.setattr(tscan, "SLAB", slab)
+        got = tscan.device_plane_codes(targets, L, n_pad, "cpu")
         assert got.dtype == torch.int8 and np.array_equal(got.numpy(), want)
         jax_slab = n_pad if n_pad <= 4 * slab else next(
             d for d in range(slab, 0, -1) if n_pad % d == 0)
@@ -436,9 +397,9 @@ def test_resident_streaming_and_sharded_cpu_builds_equal_plane_codes(stream_dbs,
 
 def test_plane_build_counts_on_the_cpu(stream_dbs):
     """8 bytes a target go up, resident or streamed, and the CPU launches
-    no kernel: plane_build.kernel_slabs is absent."""
+    no kernel and times nothing on a card: plane_build.kernel_slabs and
+    plane_build.card_us are absent."""
     db = stream_dbs[Cas9NGGParameterPack.name][0]
-    before = tscan.expand_codes.launches
     with trace.recording() as rec:
         DeviceScanner(db, "cpu")
     assert rec.counts == {"plane_build.h2d_bytes": 8 * db.num_targets}
@@ -446,7 +407,32 @@ def test_plane_build_counts_on_the_cpu(stream_dbs):
         for _ in streaming(db, TWO_GRANULES).stream_slabs():
             pass
     assert rec.counts == {"plane_build.h2d_bytes": 8 * db.num_targets}
-    assert tscan.expand_codes.launches == before
+
+
+@pytest.mark.parametrize("pack", [Cas9NGGParameterPack, Cpf1ParameterPack],
+                         ids=lambda p: p.name)
+def test_fill_planes_overwrites_every_byte_of_a_sentinel_buffer(stream_dbs, pack,
+                                                                monkeypatch):
+    """The one plane build, handed a buffer of 9s, in pieces of 1,000
+    targets through two staging buffers that take turns: every real column
+    equals plane_codes (rows >= L zero) and every later column is PAD_CODE,
+    so nothing of the buffer's old bytes is left."""
+    monkeypatch.setattr(tscan, "SLAB", 1000)
+    db = with_counts(stream_dbs[pack.name][0], 9)
+    L, n = db.pack.total_scan_length, db.num_targets
+    assert n > 3 * 1000
+    buf = torch.full((32, n + 37), 9, dtype=torch.int8)
+    tscan.fill_planes(buf, db.targets, L, tscan.WordStaging(1000, torch.device("cpu")))
+    assert np.array_equal(buf[:, :n].numpy(), plane_codes(db.targets, L))
+    assert (buf[:, n:] == PAD_CODE).all()
+
+
+def test_fill_planes_refuses_a_buffer_narrower_than_its_targets():
+    targets = counted_words(np.random.default_rng(4), 100, 23)
+    buf = torch.full((32, 99), 9, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        tscan.fill_planes(buf, targets, 23, tscan.WordStaging(100, torch.device("cpu")))
+    assert (buf == 9).all()  # refused before any piece is written
 
 
 def expand_model(words, n, L, stride, start, addr):
